@@ -1,0 +1,34 @@
+"""Audio encoder: conv stem → sinusoidal positions → N pre-LN attention blocks.
+
+Counterpart of ``whisper_tpu/models/encoder.py``; the ``lax.scan`` over
+stacked layers becomes a Python loop over the per-layer parameter dicts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from whisper_tpu_torch.config import ModelDims
+from whisper_tpu_torch.models import layers
+from whisper_tpu_torch.models.params import Params, sinusoid_position_embedding
+
+
+def encode(params: Params, mel: torch.Tensor, dims: ModelDims) -> torch.Tensor:
+    """[B, n_mels, n_frames] → [B, n_frames // 2, n_audio_state].
+
+    Self-attention goes through K1 (``ops.attention.fused_self_attention``)."""
+    enc = params["encoder"]
+    x = mel.transpose(-1, -2)  # [B, T, n_mels] — feature-last for conv
+    x = layers.gelu(layers.conv1d(enc["conv1"], x, stride=1))
+    x = layers.gelu(layers.conv1d(enc["conv2"], x, stride=2))  # T → T/2
+
+    pos = sinusoid_position_embedding(x.shape[1], dims.n_audio_state)
+    x = x + torch.from_numpy(pos).to(device=x.device, dtype=x.dtype)
+
+    n_head = dims.n_audio_head
+    for bp in enc["blocks"]:
+        x = x + layers.mha_self(
+            bp["attn"], layers.layer_norm(bp["ln1"], x), n_head, fused=True
+        )
+        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln2"], x))
+    return layers.layer_norm(enc["ln_post"], x)
