@@ -103,9 +103,7 @@ def test_wav_file_and_forced_language(jax_params, tmp_path):
 @pytest.mark.parametrize(
     "override",
     [
-        dict(beam_size=5),
-        dict(quantization="int8"),
-        dict(kv_cache_dtype="float8_e4m3fn"),
+        dict(beam_size=5, mesh_shape=(2, 1)),
         dict(temperature=0.4),
         dict(fallback_temperatures=(0.2, 0.4)),
         dict(word_timestamps=True),
@@ -150,6 +148,8 @@ def test_import_leaves_jax_triton_and_reference_out():
         "import sys, whisper_tpu_torch\n"
         "import whisper_tpu_torch.engine, whisper_tpu_torch.ops.attention\n"
         "import whisper_tpu_torch.ops.build, whisper_tpu_torch.models.params\n"
+        "import whisper_tpu_torch.decode.beam, whisper_tpu_torch.ops.fused_step\n"
+        "import whisper_tpu_torch.ops.gather, whisper_tpu_torch.models.quantize\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or m == 'whisper_tpu'"
         " or m.startswith(('jax.', 'triton.', 'whisper_tpu.'))]\n"
         "assert not bad, bad\n"

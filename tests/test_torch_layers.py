@@ -186,11 +186,3 @@ def test_mlp(dtype):
     x = _rand(rng, 2, 5, 32)
     _close(tl.mlp(_pt(p, dtype), _t(x, dtype)), jl.mlp(_pj(p, dtype), _j(x, dtype)), dtype)
 
-
-def test_int8_and_fp8_raise():
-    x = torch.zeros(1, 2, 4)
-    with pytest.raises(NotImplementedError):
-        tl.linear({"w_q": torch.zeros(4, 4, dtype=torch.int8), "w_s": torch.ones(4)}, x)
-    k8 = torch.zeros(1, 2, 1, 4).to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError):
-        tl.qkv_attention(torch.zeros(1, 2, 1, 4), k8, k8)

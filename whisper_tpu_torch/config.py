@@ -193,8 +193,9 @@ class EngineConfig:
     # port decodes into one preallocated cache; its outputs equal every
     # setting of this knob, so it is accepted and ignored.
     ctx_bucket: object = "auto"
-    # Beam decode-step mode of the JAX package. Beam search is not ported
-    # yet (beam_size > 1 raises), so this is accepted and ignored.
+    # Beam decode-step mode (decode/beam.py resolve_fused): "auto" (K2's
+    # "hybrid" on the card, "off" on the CPU), "hybrid", "lineage" or "off"
+    # (eager step + K4 cache reorder); True/False = "hybrid"/"off".
     fused_step: object = "auto"
     # Host→device audio width: "int16" (default) ships batches at the WAV's
     # native 16-bit width and converts on device (exact inverse of wav.py's

@@ -45,6 +45,7 @@ def greedy_decode(
     rules: Optional[LogitRules] = None,
     compute_dtype: torch.dtype = torch.float32,
     cross_kv: Optional[KVCache] = None,  # shared with language detection
+    kv_cache_dtype: Optional[torch.dtype] = None,  # cache storage (None: compute dtype)
     temperature=None,
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
 ) -> Tuple[torch.Tensor, ...]:
@@ -66,8 +67,10 @@ def greedy_decode(
     device = enc_out.device
     prompt = prompt.to(device=device, dtype=torch.long)
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, enc_out, dims)
-    cache = init_kv_cache(dims, b, total_len, dtype=compute_dtype, device=device)
+        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype)
+    cache = init_kv_cache(
+        dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device
+    )
 
     def pick(logits: torch.Tensor, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         if logit_bias is not None:

@@ -1,9 +1,12 @@
 """Engine API: ``create_engine`` → ``Monolith`` / ``EncDec`` → ``transcribe``.
 
-Counterpart of ``whisper_tpu/engine/engine.py`` for the greedy main path:
-int16 audio shipping, the ``audio_ctx="auto"`` crop, log-mel, encoder
-(with K1), language detection when ``language=None`` on a multilingual
-model, greedy decode with the suppress rules, detokenize. The port runs
+Counterpart of ``whisper_tpu/engine/engine.py`` for the static-batch
+path: int16 audio shipping, the ``audio_ctx="auto"`` crop, log-mel,
+encoder (with K1), language detection when ``language=None`` on a
+multilingual model, greedy or beam decode (``beam_size > 1``, step mode
+``fused_step``: K2 on the card's "hybrid") with the suppress rules,
+int8 weights (``quantization="int8"``, quantized at construction) and
+the fp8 KV cache (``kv_cache_dtype``), detokenize. The port runs
 eagerly, so the two engine kinds differ only in what they time:
 ``Monolith`` reports the whole run as ``model_ms``; ``EncDec`` reports the
 frontend and encoder as ``mel_ms`` and the decode as ``model_ms``.
@@ -25,6 +28,7 @@ import torch
 
 from whisper_tpu_torch.audio.wav import read_pcm_f32, read_wav, read_wav_legacy
 from whisper_tpu_torch.config import N_SAMPLES, EngineConfig, ModelDims
+from whisper_tpu_torch.decode.beam import beam_decode
 from whisper_tpu_torch.decode.greedy import greedy_decode
 from whisper_tpu_torch.decode.language import detect_language_tokens, lang_token_to_code
 from whisper_tpu_torch.decode.logits import make_rules
@@ -35,6 +39,7 @@ from whisper_tpu_torch.frontend.mel import log_mel_spectrogram
 from whisper_tpu_torch.models.decoder import precompute_cross_kv
 from whisper_tpu_torch.models.encoder import encode
 from whisper_tpu_torch.models.params import Params, init_params, to_device
+from whisper_tpu_torch.models.quantize import is_quantized, quantize_params
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
@@ -58,6 +63,7 @@ class TranscriptionResult:
     model_ms: float = 0.0
     no_speech_prob: Optional[float] = None  # <|nospeech|> prob at SOT
     is_silent: bool = False  # no-speech gate fired: text forced empty
+    avg_logprob: Optional[float] = None  # beam: the length-normalised score
 
     def clean_text(self) -> str:
         return remove_extra_spaces(self.text)
@@ -117,12 +123,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _unsupported(config: EngineConfig) -> List[str]:
     """Config options outside the ported slice, by name."""
     out = []
-    if config.beam_size > 1:
-        out.append("beam_size > 1 (beam search)")
-    if config.quantization is not None:
-        out.append(f"quantization={config.quantization!r}")
-    if config.kv_cache_dtype is not None:
-        out.append(f"kv_cache_dtype={config.kv_cache_dtype!r}")
     if config.temperature != 0 or config.fallback_temperatures:
         out.append("temperature sampling / fallback_temperatures")
     if config.word_timestamps:
@@ -159,12 +159,18 @@ class Engine:
             raise NotImplementedError(
                 "not ported to whisper_tpu_torch yet: " + ", ".join(missing)
             )
+        if config.quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization: {config.quantization!r}")
         self.device = resolve_device(device)
         self.config = config
         self.dims = assets.dims
         self.vocab = assets.vocab
         self._compute_dtype = getattr(torch, config.dtype)
-        assets = dataclasses.replace(assets, params=to_device(assets.params, self.device))
+        self._kv_dtype = getattr(torch, config.kv_cache_dtype) if config.kv_cache_dtype else None
+        params = to_device(assets.params, self.device)
+        if config.quantization == "int8" and not is_quantized(params):
+            params = quantize_params(params)
+        assets = dataclasses.replace(assets, params=params)
         self.assets = assets
         # language=None on a multilingual model → per-utterance detection.
         self._autodetect = config.language is None and config.multilingual
@@ -238,7 +244,9 @@ class Engine:
         prompts = prompts[None, :].repeat(b, 1)
         if not self._autodetect:
             return prompts, None
-        cross_kv = precompute_cross_kv(self.assets.params, enc_out, self.dims)
+        cross_kv = precompute_cross_kv(
+            self.assets.params, enc_out, self.dims, kv_dtype=self._kv_dtype
+        )
         lang_toks = detect_language_tokens(
             self.assets.params,
             enc_out,
@@ -251,15 +259,16 @@ class Engine:
         return prompts, cross_kv
 
     def _decode(self, enc_out: torch.Tensor):
-        """Greedy decode → (tokens, lengths, no_speech probs or None)."""
+        """Greedy or beam decode → (tokens, lengths, avg_logprob or None,
+        no_speech probs or None). Beam rows report their length-normalised
+        score as avg_logprob."""
         prompts, cross_kv = self._make_prompts(enc_out)
         ns = (
             (self._sot_index, self.vocab.specials.nospeech)
             if self.config.no_speech_threshold is not None
             else None
         )
-        out = greedy_decode(
-            self.assets.params, enc_out, prompts,
+        common = dict(
             dims=self.dims,
             eot=self.vocab.specials.eot,
             max_new_tokens=self._max_new,
@@ -267,13 +276,21 @@ class Engine:
             rules=self._rules,
             compute_dtype=self._compute_dtype,
             cross_kv=cross_kv,
+            kv_cache_dtype=self._kv_dtype,
             no_speech=ns,
         )
-        return out[0], out[1], out[2] if ns else None
+        if self.config.beam_size > 1:
+            out = beam_decode(
+                self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
+                fused=self.config.fused_step, **common,
+            )
+            return out[0], out[1], out[2], out[3] if ns else None
+        out = greedy_decode(self.assets.params, enc_out, prompts, **common)
+        return out[0], out[1], None, out[2] if ns else None
 
     def _run(self, batch: np.ndarray):
-        """One device run → (tokens, lengths, no_speech probs or None) on the
-        host, plus (mel_ms, model_ms)."""
+        """One device run → (tokens, lengths, avg_logprob or None, no_speech
+        probs or None) on the host, plus (mel_ms, model_ms)."""
         raise NotImplementedError
 
     def _sync(self) -> None:
@@ -348,12 +365,13 @@ class Engine:
         omit_special_tokens: bool = True,
     ) -> List[TranscriptionResult]:
         batch, b, _n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
-        tokens, lengths, nsp, mel_ms, model_ms = self._run(batch)
+        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(batch)
         return [
             self.result_from_tokens(
                 tokens[i], int(lengths[i]), omit_special_tokens,
                 mel_ms=mel_ms, model_ms=model_ms,
                 no_speech_prob=None if nsp is None else float(nsp[i]),
+                avg_logprob=None if avg_lp is None else float(avg_lp[i]),
             )
             for i in range(b)
         ]
@@ -372,6 +390,7 @@ class Engine:
         mel_ms: Optional[float] = None,
         model_ms: float = 0.0,
         no_speech_prob: Optional[float] = None,
+        avg_logprob: Optional[float] = None,
     ) -> TranscriptionResult:
         """Detokenize one decoded row into a TranscriptionResult."""
         row = np.asarray(tokens[:length])
@@ -386,10 +405,14 @@ class Engine:
         else:
             language = "en" if not self.config.multilingual else ""
         segments = parse_segments(self.vocab, row) if self.config.timestamps else None
-        # Silence gate (openai transcribe.py). Without sampling there is no
-        # avg_logprob to override it.
+        # Silence gate (openai transcribe.py): skip the window when the
+        # no-speech probability clears the threshold, unless a high
+        # avg_logprob (beam) overrides it.
         thr = self.config.no_speech_threshold
         is_silent = thr is not None and no_speech_prob is not None and no_speech_prob > thr
+        lp_thr = self.config.logprob_threshold
+        if is_silent and lp_thr is not None and avg_logprob is not None and avg_logprob > lp_thr:
+            is_silent = False
         return TranscriptionResult(
             text="" if is_silent else text,
             tokens=np.asarray(tokens),
@@ -400,6 +423,7 @@ class Engine:
             model_ms=model_ms,
             no_speech_prob=no_speech_prob,
             is_silent=is_silent,
+            avg_logprob=avg_logprob,
         )
 
     # --- constructors ------------------------------------------------------
@@ -458,9 +482,8 @@ class Monolith(Engine):
 
     def _run(self, batch: np.ndarray):
         t0 = time.perf_counter()
-        tokens, lengths, nsp = self._decode(self._encode(batch))
-        tokens, lengths, nsp = _host(tokens), _host(lengths), _host(nsp)
-        return tokens, lengths, nsp, None, (time.perf_counter() - t0) * 1e3
+        out = [_host(x) for x in self._decode(self._encode(batch))]
+        return (*out, None, (time.perf_counter() - t0) * 1e3)
 
 
 class EncDec(Engine):
@@ -471,10 +494,9 @@ class EncDec(Engine):
         enc_out = self._encode(batch)
         self._sync()
         t1 = time.perf_counter()
-        tokens, lengths, nsp = self._decode(enc_out)
-        tokens, lengths, nsp = _host(tokens), _host(lengths), _host(nsp)
+        out = [_host(x) for x in self._decode(enc_out)]
         t2 = time.perf_counter()
-        return tokens, lengths, nsp, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        return (*out, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
 
 def create_engine(

@@ -1,14 +1,29 @@
 """Text decoder with KV-cached self-attention and precomputed cross-attention.
 
-Counterpart of the greedy-path parts of ``whisper_tpu/models/decoder.py``:
-``init_kv_cache``, ``precompute_cross_kv``, ``_decoder_forward`` for a
-shared (scalar) position, ``decoder_prefill`` and ``decoder_step``. Beam
-widths, per-row positions and the merged-layout read are not ported yet.
+Counterpart of ``whisper_tpu/models/decoder.py``: ``init_kv_cache``,
+``precompute_cross_kv``, ``_decoder_forward`` for a shared (scalar)
+position with beam widths, ``decoder_prefill``, ``decoder_step``, and the
+beam step modes: ``plane_cache_from_prefill`` + ``decoder_step_fused``
+("hybrid", through K2) and ``init_lineage`` + ``decoder_step_lineage``
+("lineage"). Per-row positions, ``merged_read``, ``decoder_window`` and the
+segment-growth helpers (``grow_plane_cache``, ``grow_lineage``) are not
+ported: the port preallocates one cache of ``p_len + max_new`` positions.
 
 Layouts are the JAX ones: self-attention cache ``{"k"/"v": [L, B, ctx, H,
 Dh]}``, cross-attention K/V ``{"k"/"v": [L, B, H, Dh, n_audio_ctx]}``
-(head-major, sequence-minor). Where JAX returns an updated copy of the
-cache, the port writes the new rows into the cache in place and returns it.
+(head-major, sequence-minor), hybrid planes ``{"k"/"v": [2, L, B·K, ctx,
+H·Dh]}``. Caches hold the storage dtype (``kv_cache_dtype``, e.g. fp8);
+new K/V rows are cast to it on write. Where JAX returns an updated copy of
+the cache, the port writes the new rows into the cache in place and
+returns it.
+
+Every mode runs the one layer loop :func:`_layers` and passes it only its
+self-attention cache write and read. That read is one
+``layers.qkv_attention`` call over the written window ``[0, pos]`` with no
+mask (a causal mask for the prefill, an ancestry bias for lineage): the rows JAX reads
+past it carry mask -1e30 and weigh exactly 0 in f32. So the eager step
+after a cache reorder and the hybrid step run the same arithmetic on the
+same bytes, and their logits are bitwise equal on any device.
 """
 
 from __future__ import annotations
@@ -43,18 +58,65 @@ def init_kv_cache(
     }
 
 
-def precompute_cross_kv(params: Params, enc_out: torch.Tensor, dims: ModelDims) -> KVCache:
+def precompute_cross_kv(
+    params: Params,
+    enc_out: torch.Tensor,
+    dims: ModelDims,
+    kv_dtype: Optional[torch.dtype] = None,
+) -> KVCache:
     """Cross-attention K/V over encoder states, computed once per utterance:
-    [L, B, H, Dh, n_audio_ctx]. (The fp8 storage dtype of the JAX version
-    is not ported yet.)"""
+    [L, B, H, Dh, n_audio_ctx]. ``kv_dtype`` optionally sets the storage
+    dtype (e.g. ``torch.float8_e4m3fn``; attention upcasts at use)."""
     n_head = dims.n_text_head
     ks, vs = [], []
     for bp in params["decoder"]["blocks"]:
         k = layers.split_heads(layers.linear(bp["cross"]["k"], enc_out), n_head)
         v = layers.split_heads(layers.linear(bp["cross"]["v"], enc_out), n_head)
-        ks.append(k.permute(0, 2, 3, 1))  # [B, Tk, H, Dh] → [B, H, Dh, Tk]
-        vs.append(v.permute(0, 2, 3, 1))
+        k = k.permute(0, 2, 3, 1)  # [B, Tk, H, Dh] → [B, H, Dh, Tk]
+        v = v.permute(0, 2, 3, 1)
+        if kv_dtype is not None:
+            k, v = k.to(kv_dtype), v.to(kv_dtype)
+        ks.append(k)
+        vs.append(v)
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype) -> torch.Tensor:
+    """Token plus positional embedding for positions [pos, end), in the
+    compute dtype."""
+    return (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos:end]).to(compute_dtype)
+
+
+def _cross_block(bp, x, n_head, xk_l, xv_l, beam_width: int) -> torch.Tensor:
+    """Residual cross-attention over precomputed encoder K/V. Beams fold
+    into the query-row axis: [B·K, T, H, Dh] → [B, K·T, H, Dh] against
+    cross-KV stored at batch B, which is never replicated."""
+    hn = layers.layer_norm(bp["ln2"], x)
+    qx = layers.split_heads(layers.linear(bp["cross"]["q"], hn), n_head)
+    bk, t, h, dh = qx.shape
+    out = layers.cross_attention_T(
+        qx.reshape(bk // beam_width, beam_width * t, h, dh), xk_l, xv_l
+    ).reshape(bk, t, h, dh)
+    return x + layers.linear(bp["cross"]["o"], layers.merge_heads(out))
+
+
+def _layers(dec, x, n_head, cross_kv, beam_width: int, self_kv) -> torch.Tensor:
+    """The decoder's layer stack and unembedding over embedded tokens ``x``
+    [BK, T, d], shared by every step mode. Only the self-attention's cache
+    differs between them: ``self_kv(layer, q, k_new, v_new)`` stores the new
+    K/V rows ([BK, T, H, Dh]) and returns the operands ``(q, k, v, mask)``
+    of the one ``layers.qkv_attention`` call, whose output is reshaped back
+    to ``q``'s shape. Returns logits [BK, T, n_vocab] float32."""
+    for layer, bp in enumerate(dec["blocks"]):
+        hn = layers.layer_norm(bp["ln1"], x)
+        q, k_new, v_new = (
+            layers.split_heads(layers.linear(bp["attn"][n], hn), n_head) for n in "qkv"
+        )
+        attn = layers.qkv_attention(*self_kv(layer, q, k_new, v_new)).reshape(q.shape)
+        x = x + layers.linear(bp["attn"]["o"], layers.merge_heads(attn))
+        x = _cross_block(bp, x, n_head, cross_kv["k"][layer], cross_kv["v"][layer], beam_width)
+        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], x))
+    return layers.unembed(dec["tok_emb"], layers.layer_norm(dec["ln"], x))
 
 
 def _decoder_forward(
@@ -65,22 +127,23 @@ def _decoder_forward(
     cross_kv: KVCache,
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
+    beam_width: int = 1,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Shared body for prefill (T = prompt length) and step (T = 1).
 
     The self-attention read covers cache positions ``0 .. pos_offset+T-1``:
     the positions JAX leaves unmasked. The rows JAX reads past them carry
     mask -1e30 and weigh exactly 0 in f32, so the result is the same.
+    ``beam_width=K``: the batch axis is a folded [B·K] beam axis while
+    ``cross_kv`` stays at batch B (see :func:`_cross_block`).
     Returns (logits [B, T, n_vocab] float32, cache)."""
     dec = params["decoder"]
-    n_head = dims.n_text_head
     t = tokens.shape[1]
     end = pos_offset + t
     if end > cache["k"].shape[2]:
         raise ValueError(f"positions up to {end} exceed the cache length")
 
-    x = layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos_offset:end]
-    x = x.to(compute_dtype)
+    x = _embed_at(dec, tokens, pos_offset, end, compute_dtype)
 
     # Causal mask over the read window: query at absolute position
     # pos_offset + i sees keys at positions <= that. A single new token sees
@@ -91,30 +154,12 @@ def _decoder_forward(
         k_pos = torch.arange(end, device=x.device)[None, :]
         mask = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(compute_dtype)
 
-    for layer, bp in enumerate(dec["blocks"]):
-        # --- causal self-attention against the cache ---
-        hn = layers.layer_norm(bp["ln1"], x)
-        q = layers.split_heads(layers.linear(bp["attn"]["q"], hn), n_head)
-        k_new = layers.split_heads(layers.linear(bp["attn"]["k"], hn), n_head)
-        v_new = layers.split_heads(layers.linear(bp["attn"]["v"], hn), n_head)
-        cache["k"][layer, :, pos_offset:end] = k_new
-        cache["v"][layer, :, pos_offset:end] = v_new
-        attn_out = layers.qkv_attention(
-            q, cache["k"][layer, :, :end], cache["v"][layer, :, :end], mask
-        )
-        x = x + layers.linear(bp["attn"]["o"], layers.merge_heads(attn_out))
+    def self_kv(layer, q, k_new, v_new):
+        cache["k"][layer, :, pos_offset:end] = k_new.to(cache["k"].dtype)
+        cache["v"][layer, :, pos_offset:end] = v_new.to(cache["v"].dtype)
+        return q, cache["k"][layer, :, :end], cache["v"][layer, :, :end], mask
 
-        # --- cross-attention over precomputed encoder K/V ---
-        hn = layers.layer_norm(bp["ln2"], x)
-        qx = layers.split_heads(layers.linear(bp["cross"]["q"], hn), n_head)
-        cross_out = layers.cross_attention_T(qx, cross_kv["k"][layer], cross_kv["v"][layer])
-        x = x + layers.linear(bp["cross"]["o"], layers.merge_heads(cross_out))
-
-        # --- MLP ---
-        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], x))
-
-    x = layers.layer_norm(dec["ln"], x)
-    return layers.unembed(dec["tok_emb"], x), cache
+    return _layers(dec, x, dims.n_text_head, cross_kv, beam_width, self_kv), cache
 
 
 def decoder_prefill(
@@ -138,9 +183,139 @@ def decoder_step(
     cross_kv: KVCache,
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
+    beam_width: int = 1,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One autoregressive step. Returns (logits [B, V], cache)."""
+    """One autoregressive step. ``beam_width=K``: the token and cache batch
+    axis is [B·K] while ``cross_kv`` stays at B. Returns (logits [B, V],
+    cache)."""
     logits, cache = _decoder_forward(
-        params, token[:, None], int(pos), cache, cross_kv, dims, compute_dtype
+        params, token[:, None], int(pos), cache, cross_kv, dims, compute_dtype,
+        beam_width=beam_width,
     )
     return logits[:, 0, :], cache
+
+
+def plane_cache_from_prefill(cache: KVCache, beam: int) -> KVCache:
+    """Prefilled cache [L, B, ctx, H, Dh] → the ping-pong plane pair [2, L,
+    B·beam, ctx, H·Dh] of the hybrid step (each utterance's rows repeated
+    ``beam`` times, beam-minor, as ``jnp.repeat``). Plane 0 holds the
+    fanned-out prefill and is the first step's read plane; plane 1 starts
+    as zeros and is written before it is read."""
+    l, b, ctx, h, dh = cache["k"].shape
+
+    def fan(x):
+        planes = x.new_zeros((2, l, b * beam, ctx, h * dh))
+        planes[0] = x.reshape(l, b, ctx, h * dh).repeat_interleave(beam, dim=1)
+        return planes
+
+    return {"k": fan(cache["k"]), "v": fan(cache["v"])}
+
+
+def decoder_step_fused(
+    params: Params,
+    token: torch.Tensor,  # [BK] — token at absolute position `pos`
+    pos: int,
+    cache: KVCache,  # {"k"/"v": [2, L, BK, ctx, H·Dh]} ping-pong planes
+    parity: int,  # plane to READ; this step writes plane 1 - parity
+    pending_idx: torch.Tensor,  # [BK] int32 — beam permutation chosen at the
+    # previous step's selection, applied by K2 inside this step
+    cross_kv: KVCache,
+    dims: ModelDims,
+    compute_dtype: torch.dtype = torch.float32,
+    beam_width: int = 1,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One beam step with the pending permutation applied by K2
+    (``ops/fused_step.permute_append``): per layer, K2 makes plane ``1 -
+    parity`` the permuted read plane plus this step's K/V rows at ``pos``,
+    then the self-attention reads plane ``1 - parity`` over ``[0, pos]``
+    through the same ``layers.qkv_attention`` call as the eager step (the
+    [BK, ctx, H·Dh] plane slice is a free [BK, ctx, H, Dh] view). So the
+    result equals :func:`decoder_step` after a cache reorder by
+    ``pending_idx``, bitwise. JAX's block-diagonal merged read, which suits
+    XLA on the TPU's matrix unit, is not carried over.
+
+    Returns (logits [BK, V] f32, cache with plane ``1 - parity`` current);
+    the caller flips the parity."""
+    from whisper_tpu_torch.ops.fused_step import permute_append
+
+    dec = params["decoder"]
+    pos, parity = int(pos), int(parity)
+    ck, cv = cache["k"], cache["v"]
+    x = _embed_at(dec, token[:, None], pos, pos + 1, compute_dtype)
+
+    def self_kv(layer, q, k_new, v_new):
+        bk, _, h, dh = k_new.shape
+        permute_append(
+            ck, cv, pending_idx, layer, pos, parity,
+            k_new.reshape(bk, h * dh), v_new.reshape(bk, h * dh),
+        )
+        win = (p[1 - parity, layer, :, : pos + 1].view(bk, pos + 1, h, dh) for p in (ck, cv))
+        return (q, *win, None)
+
+    return _layers(dec, x, dims.n_text_head, cross_kv, beam_width, self_kv)[:, 0, :], cache
+
+
+def init_lineage(
+    b: int, beam: int, ctx: int, p_len: int, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """[B·K, ctx] int32 slot-ancestry table of the lineage step: entry [r, t]
+    is the slot (0..K-1, within r's utterance) whose row holds position t's
+    K/V on r's ancestry path, -1 where t is unwritten. Prefill positions
+    point at the row's own slot (the fan-out copied the prefill into every
+    slot)."""
+    own = (torch.arange(b * beam, dtype=torch.int32, device=device) % beam)[:, None]
+    written = torch.arange(ctx, device=device)[None, :] < p_len
+    return torch.where(written, own, torch.full_like(own, -1))
+
+
+def decoder_step_lineage(
+    params: Params,
+    token: torch.Tensor,  # [B·K] — token at absolute position `pos`
+    pos: int,
+    cache: KVCache,  # {"k"/"v": [L, B·K, ctx, H, Dh]}, slot-stationary
+    lineage: torch.Tensor,  # [B·K, ctx] int32 (see init_lineage)
+    cross_kv: KVCache,
+    dims: ModelDims,
+    compute_dtype: torch.dtype = torch.float32,
+    beam_width: int = 1,
+) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """One beam step with the beam permutation turned into a mask: every
+    logical beam writes position ``pos`` into its own slot, and attention
+    runs over all K slots' rows of its utterance with a bias that is 0
+    where ``lineage[r, t] == slot`` and -1e30 elsewhere (masked entries
+    weigh exactly 0 in f32). The cache never moves; the caller permutes
+    the lineage rows. Pure tensor code, no kernel, as in JAX. Reads the
+    window [0, pos] of each slot.
+
+    Returns (logits [B·K, V] f32, cache, lineage), the cache and the
+    lineage written in place: the new rows at ``pos`` and lineage column
+    ``pos`` set to each row's own slot."""
+    dec = params["decoder"]
+    n_head = dims.n_text_head
+    bk = token.shape[0]
+    kw = beam_width
+    b = bk // kw
+    pos = int(pos)
+    w = pos + 1
+    dh = dims.n_text_state // n_head
+
+    x = _embed_at(dec, token[:, None], pos, pos + 1, compute_dtype)
+    own = torch.arange(bk, dtype=torch.int32, device=lineage.device) % kw
+    lineage[:, pos] = own
+    # Bias over the flattened (slot, position) key axis, shared by every
+    # layer: [B, 1, K, K·w].
+    slot = torch.arange(kw, dtype=torch.int32, device=lineage.device)
+    lin3 = lineage[:, :w].reshape(b, kw, w)
+    bias = torch.where(lin3[:, :, None, :] == slot[None, None, :, None], 0.0, NEG_INF)
+    bias = bias.reshape(b, kw, kw * w)[:, None]
+
+    def self_kv(layer, q, k_new, v_new):
+        cache["k"][layer, :, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][layer, :, pos] = v_new[:, 0].to(cache["v"].dtype)
+        # [BK, w, H, Dh] → [B, K·w, H, Dh]: slots fold into the key axis,
+        # the K queries of an utterance into its query rows.
+        k4, v4 = (cache[n][layer, :, :w].reshape(b, kw * w, n_head, dh) for n in "kv")
+        return q.reshape(b, kw, n_head, dh), k4, v4, bias
+
+    logits = _layers(dec, x, n_head, cross_kv, kw, self_kv)
+    return logits[:, 0, :], cache, lineage

@@ -18,8 +18,15 @@ Numerics against JAX, which accumulates every product in f32
   rounding (2^-8 relative) per output. The attention score products are
   taken on f32 copies of q and k, so scores are f32 as in JAX.
 
-The int8 (``w_q``) and fp8 (``itemsize == 1``) branches are not ported yet
-and raise.
+Int8 weights (``{"w_q": int8, "w_s": f32 per output channel}``, see
+``models/quantize.py``): ``w_q`` is cast to the activation dtype, multiplied
+with ``torch.matmul`` and the f32 product is rescaled per output channel
+before the bias, as in JAX. In f32 that is JAX's arithmetic; in bf16 the
+product is rounded to bf16 before the f32 rescale (one extra bf16 rounding
+per output, the same class as the float weights above). The int8 embedding
+table ``{"q", "s"}`` is per-row scaled, in f32. fp8 K/V (``itemsize == 1``,
+``kv_cache_dtype="float8_e4m3fn"``) are upcast to the query's dtype at use,
+so attention over an fp8 cache returns the query's dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,19 +37,15 @@ import torch
 import torch.nn.functional as F
 
 
-def _no_int8(p) -> None:
-    if "w_q" in p:
-        raise NotImplementedError("int8 weights are not ported yet")
-
-
-def _no_fp8(*xs: torch.Tensor) -> None:
-    if any(x.element_size() == 1 for x in xs):
-        raise NotImplementedError("fp8 KV caches are not ported yet")
-
-
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    _no_int8(p)
-    y = torch.matmul(x, p["w"]).float()
+    """x @ w (+ b), in the activation dtype. Mixed float dtypes (a bf16
+    attention output against f32 weights) multiply in the promoted dtype,
+    as JAX's einsum does, and the result returns to ``x.dtype``."""
+    if "w_q" in p:
+        y = torch.matmul(x, p["w_q"].to(x.dtype)).float() * p["w_s"].float()
+    else:
+        dt = torch.promote_types(x.dtype, p["w"].dtype)
+        y = torch.matmul(x.to(dt), p["w"].to(dt)).float()
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
@@ -65,25 +68,30 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def conv1d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """[B, T, C_in] → [B, T', C_out], padding (width-1)//2 each side."""
-    _no_int8(p)
-    w = p["w"]
+    w = p["w_q"] if "w_q" in p else p["w"]
     pad = (w.shape[-1] - 1) // 2
     y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), stride=stride, padding=pad)
-    y = y.transpose(1, 2).float() + p["b"].float()
-    return y.to(x.dtype)
+    y = y.transpose(1, 2).float()
+    if "w_q" in p:
+        y = y * p["w_s"].float()  # per-c_out int8 rescale
+    return (y + p["b"].float()).to(x.dtype)
 
 
-def embed(tok_emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(tok_emb, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-embedding lookup, float or int8 table ({"q","s"} per-row; f32)."""
     if isinstance(tok_emb, dict):
-        raise NotImplementedError("int8 embedding tables are not ported yet")
+        return tok_emb["q"][tokens].float() * tok_emb["s"][tokens][..., None].float()
     return tok_emb[tokens]
 
 
-def unembed(tok_emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits projection against the embedding table: [..., d] → [..., V] f32."""
+def unembed(tok_emb, x: torch.Tensor) -> torch.Tensor:
+    """Logits projection against the (possibly int8) embedding table:
+    [..., d] → [..., V] f32."""
+    table = tok_emb["q"] if isinstance(tok_emb, dict) else tok_emb
+    logits = torch.matmul(x.float(), table.float().t())
     if isinstance(tok_emb, dict):
-        raise NotImplementedError("int8 embedding tables are not ported yet")
-    return torch.matmul(x.float(), tok_emb.float().t())
+        logits = logits * tok_emb["s"].float()
+    return logits
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -105,8 +113,12 @@ def qkv_attention(
 ) -> torch.Tensor:
     """Scaled dot-product attention: f32 scores times 1/sqrt(Dh), f32
     softmax, weights cast to ``v.dtype`` for the value product. Returns
-    [B, Tq, H, Dh] in ``v.dtype``."""
-    _no_fp8(k, v)
+    [B, Tq, H, Dh] in ``v.dtype`` (the query's dtype for an fp8 cache,
+    which is upcast at use)."""
+    if k.element_size() == 1:
+        k = k.to(q.dtype)
+    if v.element_size() == 1:
+        v = v.to(q.dtype)
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / float(dh) ** 0.5)
@@ -123,8 +135,12 @@ def cross_attention_T(
     vT: torch.Tensor,  # [B, H, Dh, Tk]
 ) -> torch.Tensor:
     """Unmasked cross-attention against head-major, sequence-minor K/V (the
-    layout ``decoder.precompute_cross_kv`` stores). Returns [B, Tq, H, Dh]."""
-    _no_fp8(kT, vT)
+    layout ``decoder.precompute_cross_kv`` stores; fp8 K/V are upcast to
+    the query's dtype at use). Returns [B, Tq, H, Dh]."""
+    if kT.element_size() == 1:
+        kT = kT.to(q.dtype)
+    if vT.element_size() == 1:
+        vT = vT.to(q.dtype)
     dh = q.shape[-1]
     qt = q.transpose(1, 2)  # [B, H, Tq, Dh]
     scores = torch.matmul(qt.float(), kT.float()) * (1.0 / float(dh) ** 0.5)

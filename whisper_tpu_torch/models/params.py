@@ -132,6 +132,8 @@ def _tensor_from_numpy(x) -> torch.Tensor:
     x = np.array(x)  # a copy: the caller's array stays its own
     if x.dtype.name == "bfloat16":  # ml_dtypes bf16: same bits as torch's
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    if x.dtype.name == "float8_e4m3fn":  # ml_dtypes fp8: same bits as torch's
+        return torch.from_numpy(x.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(x)
 
 
@@ -141,8 +143,9 @@ def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
     Stacked ``blocks`` ([L, ...] leaves) become a list of per-layer dicts,
     conv weights go from HIO ``[width, c_in, c_out]`` to ``[c_out, c_in,
     width]``, everything else keeps its layout. Values and dtypes are kept
-    bit for bit (bf16 included). Quantized trees (``w_q``/``w_s``) are not
-    in this slice."""
+    bit for bit (bf16 and fp8 included). Int8 trees (``models/quantize.py``)
+    convert the same way: ``w_q``/``w_s`` leaves (a conv ``w_q`` transposed
+    like ``w``) and the ``tok_emb {"q", "s"}`` table."""
 
     def leaf(x):
         return _tensor_from_numpy(x).to(device)
@@ -157,15 +160,12 @@ def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
             if key == "blocks":
                 out[key] = [convert(b) for b in unstack(val)]
             elif key in ("conv1", "conv2"):
+                w = "w_q" if "w_q" in val else "w"
                 out[key] = {
-                    "w": leaf(np.transpose(np.asarray(val["w"]), (2, 1, 0))),
-                    "b": leaf(val["b"]),
+                    k: leaf(np.transpose(np.asarray(v), (2, 1, 0)) if k == w else v)
+                    for k, v in val.items()
                 }
             elif isinstance(val, dict):
-                if "w_q" in val or key == "tok_emb":
-                    raise NotImplementedError(
-                        "int8-quantized parameter trees are not ported yet"
-                    )
                 out[key] = convert(val)
             else:
                 out[key] = leaf(val)

@@ -18,6 +18,7 @@ import torch
 from whisper_tpu_torch.models import layers
 
 KERNEL = "flash_attn_fwd"
+KERNEL_SYMBOL = "flash_fwd"  # in the names of its device functions (profiler traces)
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

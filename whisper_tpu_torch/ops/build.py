@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with nvcc
 for ``sm_90a`` into a shared library under ``build/whisper_tpu_torch/`` at
 the root of the checkout and loaded with ``ctypes``. The library's file
-name carries a hash of its source and flags, so an edited source is built
+name carries a hash of its source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source is built
 anew and a stale library is never loaded. Nothing here runs at import.
 """
 
@@ -40,7 +41,11 @@ def find_nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # The shared headers go into every hash: an edited header rebuilds all.
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
