@@ -10,22 +10,31 @@ Phases, in order; any failure exits non-zero before the last line:
    ``whisper_tpu_torch/csrc/`` (into ``build/whisper_tpu_torch/``).
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes and a few others, with the tolerance stated (K1: 4 bf16
-   ulps; K2 and K4 move bytes: bitwise); times of the kernel, the plain
-   version and the library call beside the bound.
+   ulps; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
+   ulps or 1e-5 in f32, and JAX's tolerances against
+   ``reference_gather_attend``; K5: 2e-4 in log-mel units, also against
+   ``frontend/mel.py``); times of the kernel, the plain version and the
+   library call (or the nearest composite, labelled) beside the bound.
+   K5's path is its entry point on the main path's batch: one launch.
 4. Greedy main path at full width: ``create_engine(MONOLITH, EngineConfig(
    model="large-v3", max_new_tokens=64), device="cuda")`` with random
    weights from a seed; ``transcribe_batch`` of 4 utterances of different
    lengths and ``transcribe`` of a WAV file. Launch counts are set to 0
    just before and read just after: K1 must run once per encoder layer of
-   every encode, K2 and K4 never. Prints audio-s/s, encoder ms and decode
-   ms/token.
+   every encode, K2, K3, K4 and K5 never. Prints audio-s/s, encoder ms and
+   decode ms/token.
 4b. Beam main path at full width: the same with ``beam_size=5,
    quantization="int8", kv_cache_dtype="float8_e4m3fn"`` and
    ``fused_step`` left at "auto" (K2's "hybrid" on the card): K2 must run
-   once per decoder layer of every decode step, K4 never. Then
+   once per decoder layer of every decode step, K3, K4 and K5 never. Then
    ``fused_step="off"`` on the same weights: K4 twice per step (K and V),
    K2 never, and tokens equal to the hybrid run's (the two modes run the
    same arithmetic on the same bytes).
+4c. K3's path at full width: ``utils/probe_fused.run`` at large-v3, batch
+   4, beam 5, ctx 68, fp8 planes, in its modes "attend" (K3 32 × steps, K2
+   never), "dma" and "hybrid" (K2 32 × steps, K3 never), ms per 32-layer
+   step each; then one step of "attend" against one of "hybrid": gathered
+   windows bitwise, ``h`` within ``probe_fused.compare_runs``' tolerance.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
@@ -190,6 +199,27 @@ def bytes_bound_ms(n_bytes: float) -> float:
     return n_bytes / PEAK_BYTES * 1e3
 
 
+def mel_bound(b: int, n_mels: int, filt_nnz: int) -> dict:
+    """Least time for the log-mel of ``b`` windows of 480000 samples (K5's
+    function, before the epilogue): the larger of the bytes (samples read
+    once, [b, n_mels, 3000] written once) over the memory rate and the
+    operations the function needs per frame over the f32 rate: the window
+    (400), a real FFT of 400 points (2.5·N·log2 N, half a complex FFT's
+    5·N·log2 N), the power (3 per bin), the filterbank's non-zeros (2 each)
+    and the log (1 per mel). ``dense_*`` is the same for the dense DFT the
+    kernel computes (2·400·402 + 2·201·n_mels per frame): the rate of its
+    algorithm, not a bound on the function."""
+    frames = b * 3000
+    n = 400
+    flops = frames * (n + 2.5 * n * np.log2(n) + 3 * 201 + 2 * filt_nnz + n_mels)
+    dense = frames * (2 * n * 402 + 2 * 201 * n_mels)
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_bytes = bytes_bound_ms(b * (480_000 + n_mels * 3000) * 4)
+    bound, by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return {"ms": bound, "by": by, "gflop": float(flops) / 1e9, "dense_gflop": dense / 1e9,
+            "dense_ms": max(dense / PEAK_F32_FLOPS * 1e3, by_bytes)}
+
+
 def phase_permute_append(torch, fused_step) -> dict:
     """K2 against its plain version, bitwise, at the beam main path's shape
     (large-v3 beam 5 batch 4: planes [2, 32, 20, 68, 1280], in fp8 and
@@ -349,6 +379,290 @@ def phase_permute_rows(torch, gather) -> dict:
     return record
 
 
+def _within(a, b, tol: float) -> bool:
+    """``|a - b| <= tol + tol * |b|`` everywhere (numpy's assert_allclose with
+    atol = rtol = tol, as JAX's tests hold K3 to its oracle)."""
+    return bool(((a.float() - b.float()).abs() <= tol + tol * b.float().abs()).all())
+
+
+def phase_gather_attend(torch, gather_attend, fused_step) -> dict:
+    """K3 against its plain version at the beam path's shapes (large-v3
+    beam 5 batch 4: planes [2, 32, 20, 68, 1280], fp8 and bf16 storage, bf16
+    query, pos 4, 35 and 67, both parities, ``idx`` with a duplicate) and at
+    a tiny f32 and a dev Dh-32 fp8 shape. The planes bitwise (the write
+    plane's window, the read plane, the other layers); ``attn`` within 4
+    bf16 ulps at max|ref| (bf16 query) or 1e-5 relative (f32), and against
+    ``reference_gather_attend`` (K2's plain version + ``qkv_attention``, the
+    hybrid step's read) within JAX's tolerances for its kernel against its
+    oracle: f32 1e-5, bf16 3e-2, fp8 5e-2. The record is the fp8 case at pos
+    35, timed beside K2 + ``qkv_attention`` (the hybrid step's composite)
+    and ``index_select`` + ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dtypes = {"fp8": getattr(torch, FP8), "bf16": torch.bfloat16, "f32": torch.float32}
+    oracle_tol = {"fp8": 5e-2, "bf16": 3e-2, "f32": 1e-5}
+    cases = [((2, 32, 20, 68, 1280), 20, d, pos) for d in ("fp8", "bf16") for pos in (4, 35, 67)]
+    cases += [((2, 4, 6, 40, 384), 6, "f32", 17), ((2, 2, 6, 17, 64), 2, "fp8", 9)]
+    record = None
+    for shape, n_head, dname, pos in cases:
+        _, n_layer, bk, ctx, hd = shape
+        dh = hd // n_head
+        dt = dtypes[dname]
+        q_dt = torch.float32 if dname == "f32" else torch.bfloat16
+        idx = torch.randint(0, bk, (bk,), generator=gen, device="cuda", dtype=torch.int32)
+        idx[1] = idx[0]  # beam branching: a duplicate, always
+        layer = n_layer // 2
+        planes = [(4 * torch.randn(shape, generator=gen, device="cuda")).to(dt) for _ in range(2)]
+        q = torch.randn((bk, hd), generator=gen, device="cuda").to(q_dt)
+        new = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+        err = 0.0
+        for parity in (0, 1):
+            ck, cv = (p.clone() for p in planes)
+            rk, rv = (p.clone() for p in planes)
+            ok_, ov_ = (p.clone() for p in planes)
+            out, _, _ = gather_attend.fused_gather_attend(ck, cv, idx, layer, pos, parity, q, *new, n_head=n_head)
+            ref, _, _ = gather_attend.fused_gather_attend_reference(
+                rk, rv, idx, layer, pos, parity, q, *new, n_head=n_head)
+            orc, _, _ = gather_attend.reference_gather_attend(
+                ok_, ov_, idx, layer, pos, parity, q, *new, n_head=n_head)
+            torch.cuda.synchronize()
+            w = 1 - parity
+            for a, b in ((ck, rk), (cv, rv)):
+                same = all(
+                    torch.equal(_as_bytes(x), _as_bytes(y))
+                    for x, y in ((a[w, layer, :, : pos + 1], b[w, layer, :, : pos + 1]), (a[parity], b[parity]),
+                                 (a[w, :layer], b[w, :layer]), (a[w, layer + 1:], b[w, layer + 1:]))
+                )
+                if not same:
+                    fail(f"K3 planes differ from its plain version at {list(shape)} {dname} pos {pos} parity {parity}")
+            e = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            tol = bf16_tolerance(ref_max) if q_dt == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+            if not (bool(torch.isfinite(out.float()).all()) and e <= tol):
+                fail(f"K3 attn differs from its plain version at {list(shape)} {dname} pos {pos} "
+                     f"parity {parity}: {e} > {tol}")
+            if not _within(out, orc, oracle_tol[dname]):
+                fail(f"K3 attn differs from reference_gather_attend at {list(shape)} {dname} pos {pos} "
+                     f"beyond {oracle_tol[dname]}")
+            err = max(err, e)
+        # Bytes this run's data needs moved: K2's (each distinct source row
+        # of the window read once, the new rows read, the window [0, pos] of
+        # every row written; K and V), plus q read and attn written.
+        # Operations: 4·BK·pos·HD (scores and values) at the query dtype's
+        # peak rate. Timed on new rows already in the storage dtype; the
+        # wrapper's casts of f32 rows are timed beside it.
+        isz = planes[0].element_size()
+        n_src = int(torch.unique(idx).numel())
+        qo_bytes = 2 * bk * hd * q.element_size()
+        peak = PEAK_BF16_FLOPS if q_dt == torch.bfloat16 else PEAK_F32_FLOPS
+        by_ops = 4.0 * bk * pos * hd / peak * 1e3
+        bound = max(bytes_bound_ms(2 * hd * isz * (n_src * pos + bk + bk * (pos + 1)) + qo_bytes), by_ops)
+        stored = [n.to(dt) for n in new]
+        kern_ms = time_ms(lambda: gather_attend.fused_gather_attend(
+            ck, cv, idx, layer, pos, 0, q, *stored, n_head=n_head))
+        log(
+            f"  K3 {list(shape)} {dname} pos {pos}: planes bitwise equal, attn max_abs_err {err:.3g} "
+            f"(both parities; within {oracle_tol[dname]} of reference_gather_attend); "
+            f"kernel {kern_ms:.4f} ms, bound {bound:.4f} ms (bytes; {n_src} distinct of {bk} source rows)"
+        )
+        if record is None and pos == 35:
+            cast_ms = time_ms(lambda: gather_attend.fused_gather_attend(
+                ck, cv, idx, layer, pos, 0, q, *new, n_head=n_head))
+            plain_ms = time_ms(lambda: gather_attend.fused_gather_attend_reference(
+                ck, cv, idx, layer, pos, 0, q, *stored, n_head=n_head))
+            qh = q.view(bk, 1, n_head, dh)
+
+            def hybrid():  # the hybrid step's read: K2, then qkv_attention over [0, pos]
+                fused_step.permute_append(ck, cv, idx, layer, pos, 0, *stored)
+                k, v = (p[1, layer, :, : pos + 1].view(bk, pos + 1, n_head, dh) for p in (ck, cv))
+                return layers.qkv_attention(qh, k, v, None)
+
+            hybrid_ms = time_ms(hybrid)
+            idx_l = idx.long()
+            qt = q.view(bk, n_head, 1, dh)
+
+            srcs = [_as_bytes(p)[0, layer, :, :pos] for p in (ck, cv)]
+
+            def library():  # index_select of the K and V windows, upcast, one SDPA
+                k, v = (
+                    torch.index_select(s_, 0, idx_l).view(dt).to(q_dt).view(bk, pos, n_head, dh).transpose(1, 2)
+                    for s_ in srcs
+                )
+                return F.scaled_dot_product_attention(qt, k, v)
+
+            lib_ms = time_ms(library)
+            perm = torch.randperm(bk, generator=gen, device="cuda").to(torch.int32)
+            perm_ms = time_ms(lambda: gather_attend.fused_gather_attend(
+                ck, cv, perm, layer, pos, 0, q, *stored, n_head=n_head))
+            perm_bound = max(bytes_bound_ms(2 * hd * isz * (bk * pos + bk + bk * (pos + 1)) + qo_bytes), by_ops)
+            log(
+                f"    with the f32 rows' casts {cast_ms:.4f} ms; plain {plain_ms:.4f} ms; hybrid composite "
+                f"(K2 + qkv_attention) {hybrid_ms:.4f} ms; index_select ×2 + upcast ×2 + "
+                f"scaled_dot_product_attention (window [0, pos) only, no append) {lib_ms:.4f} ms; on a "
+                f"permutation without duplicates: kernel {perm_ms:.4f} ms, bound {perm_bound:.4f} ms"
+            )
+            record = {
+                "name": "gather_attend", "route": "cuda",
+                "source": "whisper_tpu_torch/csrc/gather_attend.cu",
+                "replaces": "whisper_tpu/ops/fused_step.py:328",
+                "launches": None, "max_abs_err": err, "ms": kern_ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if bound > by_ops else "operations",
+                "library_ms": lib_ms,
+                "library_call": "index_select x2 + .to(bfloat16) x2 + scaled_dot_product_attention",
+                "hybrid_ms": hybrid_ms, "cast_ms": cast_ms,
+                "shape": list(shape), "dtype": FP8, "pos": pos, "distinct_sources": n_src,
+                "permutation_ms": perm_ms, "permutation_bound_ms": perm_bound,
+            }
+    return record
+
+
+def phase_mel_fused(torch, mel_fused) -> dict:
+    """K5 against its plain version on the main path's batch ([4, 480000],
+    128 mels, the large-v3 frontend), on [2, 480000] with 80 mels and on one
+    unbatched [480000]: max abs error ≤ 2e-4 in log-mel units (JAX's
+    tolerance for its fused kernel, tests/test_mel.py), and the same against
+    the engine's ``frontend/mel.log_mel_spectrogram``. The unbatched
+    utterance is the batch's row 3: the kernel's output must equal that
+    row bitwise, and the plain version's two results are compared too. The
+    first call is K5's path: one call of its entry point, launches counted.
+    Times: the kernel alone, the wrapper with its epilogue, the plain
+    version, the library composite (``torch.stft`` on cuFFT, the mel
+    matmul on constants already on the card, ``log10``; checked against the
+    kernel within the same 2e-4), and ``frontend/mel.py``'s host wall time
+    (it uploads its constants on every call)."""
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.frontend.mel import log_mel_spectrogram
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' matmuls in full f32
+    _, batch, _ = main_path_batch()
+    x4 = torch.from_numpy(batch).cuda()
+    cases = [("main path batch", x4, 128), ("[2, 480000]", x4[:2].flip(-1).contiguous(), 80),
+             ("unbatched", x4[3], 128)]
+    tol = 2e-4
+    launches = None
+    record = None
+    batched = None
+    reset_counts(mel_fused)  # counts start here: K5's path (the first case's call)
+    for name, x, n_mels in cases:
+        out = mel_fused.log_mel_spectrogram_fused(x, n_mels=n_mels)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = mel_fused.launches  # counts end here
+            if launches != 1:
+                fail(f"K5 launched {launches} times for one batch, expected 1")
+        ref = mel_fused.log_mel_spectrogram_fused_reference(x, n_mels=n_mels)
+        eng = log_mel_spectrogram(x, n_mels=n_mels)
+        err = (out - ref).abs().max().item()
+        err_eng = (out - eng).abs().max().item()
+        log(f"  K5 {name} {list(x.shape)} {n_mels} mels: max_abs_err {err:.3g} vs plain, "
+            f"{err_eng:.3g} vs frontend/mel.py (tol {tol})")
+        if out.shape != (*x.shape[:-1], n_mels, 3000) or not bool(torch.isfinite(out).all()):
+            fail(f"K5 output malformed at {name}: {tuple(out.shape)}")
+        if err > tol or err_eng > tol:
+            fail(f"K5 differs at {name}: {err} / {err_eng} > {tol}")
+        if batched is None:
+            batched = (out, ref, eng)
+        if name == "unbatched":  # which side moves between batch 4 and batch 1
+            same = torch.equal(out, batched[0][3])
+            plain_moved = (ref - batched[1][3]).abs().max().item()
+            eng_moved = (eng - batched[2][3]).abs().max().item()
+            log(f"    unbatched against the batch's row 3: kernel bitwise {same}; plain version moved "
+                f"{plain_moved:.3g}, frontend/mel.py moved {eng_moved:.3g}")
+            if not same:
+                fail("K5's output for one utterance differs from its row in the batch")
+            record["unbatched_plain_moved"] = plain_moved
+            record["unbatched_frontend_mel_moved"] = eng_moved
+        if record is None:
+            b = x.shape[0]
+            filt_t = mel_fused._basis(n_mels)[1][:, :n_mels]
+            bound = mel_bound(b, n_mels, int(np.count_nonzero(filt_t)))
+            kern_ms = time_ms(lambda: mel_fused.log10_mel_kernel(x, n_mels))
+            wrap_ms = time_ms(lambda: mel_fused.log_mel_spectrogram_fused(x, n_mels=n_mels))
+            plain_ms = time_ms(lambda: mel_fused.log_mel_spectrogram_fused_reference(x, n_mels=n_mels))
+            window = torch.hann_window(400, periodic=True, device="cuda")
+            filt = torch.from_numpy(filt_t.T.copy()).cuda()  # [n_mels, 201], the fold pre-scaled
+
+            def library():  # the kernel's function: cuFFT stft, |.|^2, the mel matmul, log10
+                spec = torch.stft(F.pad(x, (0, 240)), 400, 160, window=window, center=False,
+                                  return_complex=True)  # [b, 201, 3000]
+                return torch.log10(torch.clamp_min(filt @ spec.abs().square(), 1e-10))
+
+            lib_err = (mel_fused._epilogue(library(), x.shape[:-1]) - out).abs().max().item()
+            if not lib_err <= tol:
+                fail(f"K5's library composite differs from the kernel: {lib_err} > {tol}")
+            lib_ms = time_ms(library)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                log_mel_spectrogram(x, n_mels=n_mels)
+            torch.cuda.synchronize()
+            fe_wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+            log(f"    kernel {kern_ms:.4f} ms, with the torch epilogue {wrap_ms:.4f} ms; bound "
+                f"{bound['ms']:.4f} ms ({bound['by']}; rFFT + filterbank non-zeros {bound['gflop']:.3f} "
+                f"GFLOP); the kernel's dense DFT {bound['dense_gflop']:.2f} GFLOP, "
+                f"{bound['dense_gflop'] / kern_ms:.1f} TFLOP/s, its own least time {bound['dense_ms']:.4f} ms; "
+                f"plain {plain_ms:.4f} ms; torch.stft + mel matmul + log10 (cuFFT, cuBLAS, several calls; "
+                f"max_abs_err {lib_err:.3g} vs the kernel) {lib_ms:.4f} ms; frontend/mel.py host wall "
+                f"time (uploads its constants per call) {fe_wall_ms:.4f} ms")
+            record = {
+                "name": "log_mel_fused", "route": "cuda",
+                "source": "whisper_tpu_torch/csrc/log_mel_fused.cu",
+                "replaces": "whisper_tpu/frontend/mel_pallas.py:102",
+                "launches": launches, "max_abs_err": err, "ms": kern_ms,
+                "plain_ms": plain_ms, "bound_ms": bound["ms"], "bound_by": bound["by"],
+                "library_ms": lib_ms,
+                "library_call": "torch.stft (cuFFT) + abs().square() + mel matmul + log10, several calls",
+                "library_max_abs_err": lib_err, "bound_gflop": bound["gflop"],
+                "dense_dft_gflop": bound["dense_gflop"], "dense_dft_least_ms": bound["dense_ms"],
+                "wrapper_ms": wrap_ms, "frontend_mel_wall_ms": fe_wall_ms,
+                "shape": list(x.shape), "n_mels": n_mels, "max_abs_err_vs_frontend_mel": err_eng,
+            }
+    return record
+
+
+def phase_probe_fused(torch, kernels, probe_fused) -> int:
+    """K3's path at full width: ``probe_fused.run`` at large-v3, batch 4,
+    beam 5, ctx 68, fp8 planes, in each mode. K3 launches 32 × steps under
+    "attend" and never otherwise; K2 32 × steps under "dma" and "hybrid".
+    Then one step of "attend" and one of "hybrid" from the same seed gather
+    bitwise-equal windows and give ``h`` within the tolerance of
+    ``probe_fused.compare_runs``. Returns K3's launches under "attend"."""
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    args = dict(model="large-v3", batch=4, beam=5, ctx=68, kv=FP8)
+    k3_launches = None
+    for mode in probe_fused.MODES:
+        reset_counts(*kernels)  # counts start here: this mode's run
+        res = probe_fused.run(**args, iters=8, warmup=1, mode=mode)
+        torch.cuda.synchronize()
+        k3, k2 = gather_attend.launches, fused_step.launches
+        others = attention.launches + gather.launches + mel_fused.launches  # counts end here
+        expect = LARGE_V3_DEC_LAYERS * res["steps"]
+        log(f"  {mode}: {res['ms_per_step']:.4f} ms per {res['layers']}-layer step "
+            f"({res['gb'] / res['ms_per_step'] * 1e3:.0f} GB/s of {res['gb']:.3f} GB r+w); "
+            f"K3 {k3}, K2 {k2} launches over {res['steps']} steps")
+        if not bool(torch.isfinite(res["h"].float()).all()):
+            fail(f"probe {mode}: h not finite")
+        want = (expect, 0) if mode == "attend" else (0, expect)
+        if (k3, k2) != want or others or res["layers"] != LARGE_V3_DEC_LAYERS:
+            fail(f"probe {mode}: K3 {k3}, K2 {k2}, others {others}; expected K3, K2 = {want}")
+        if mode == "attend":
+            k3_launches = k3
+    one = dict(args, iters=1, warmup=0)
+    cmp = probe_fused.compare_runs(probe_fused.run(**one, mode="attend"), probe_fused.run(**one, mode="hybrid"))
+    torch.cuda.synchronize()
+    log(f"  one step, attend vs hybrid: gathered windows bitwise {cmp['gathered_equal']}, h max_abs_err "
+        f"{cmp['h_err']:.3g} (tol {cmp['h_tol']:.3g}), new rows {cmp['new_rows_err']:.3g} "
+        f"(tol {cmp['new_rows_tol']:.3g})")
+    if not cmp["ok"]:
+        fail(f"probe: attend and hybrid disagree after one step: {cmp}")
+    return k3_launches
+
+
 def synthetic_utterance(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(16_000 * seconds)) / 16_000.0
@@ -391,7 +705,7 @@ def reset_counts(*modules) -> None:
 def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> int:
     from whisper_tpu_torch.audio.wav import write_wav
 
-    attention, fused_step, gather = kernels
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
     cfg = EngineConfig(model="large-v3", max_new_tokens=64)
     engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")
     dims = engine.dims
@@ -430,8 +744,9 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     encodes += 1
     check_results([single], engine, dims.n_vocab)
     launches = attention.launches  # counts end here
-    if fused_step.launches or gather.launches:
-        fail(f"greedy launched K2 {fused_step.launches} and K4 {gather.launches} times")
+    others = (fused_step.launches, gather.launches, gather_attend.launches, mel_fused.launches)
+    if any(others):
+        fail(f"greedy launched K2, K4, K3, K5 {others} times, expected none")
 
     log(
         f"  large-v3 bf16, batch 4 ({audio_s:.1f} s of audio): {wall * 1e3:.1f} ms "
@@ -454,7 +769,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     counts of their runs."""
     from whisper_tpu_torch.audio.wav import write_wav
 
-    attention, fused_step, gather = kernels
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
     cfg = EngineConfig(
         model="large-v3", beam_size=5, quantization="int8", kv_cache_dtype=FP8,
         max_new_tokens=64,
@@ -495,6 +810,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     encodes += 1
     check_results([single], engine, dims.n_vocab)
     k1, k2, k4, steps = attention.launches, fused_step.launches, gather.launches, beam.steps
+    k3, k5 = gather_attend.launches, mel_fused.launches
     # counts end here
 
     log(
@@ -514,6 +830,8 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         fail(f"no decode steps ran ({steps}) or the decoder has {dims.n_text_layer} layers")
     if k1 != LARGE_V3_ENC_LAYERS * encodes:
         fail(f"K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS * encodes}")
+    if k3 or k5:
+        fail(f"hybrid: K3 launched {k3} times and K5 {k5}, expected none")
     if k2 != LARGE_V3_DEC_LAYERS * steps or k4 != 0:
         fail(f"hybrid: K2 launched {k2} times (expected {LARGE_V3_DEC_LAYERS * steps}), K4 {k4} (expected 0)")
 
@@ -526,12 +844,13 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     torch.cuda.synchronize()
     wall_off = time.perf_counter() - t0
     k2_off, k4_off, steps_off = fused_step.launches, gather.launches, beam.steps
+    k35_off = gather_attend.launches + mel_fused.launches
     # counts end here
     log(
         f"  fused_step='off': {wall_off * 1e3:.1f} ms → {audio_s / wall_off:.2f} audio-s/s; "
         f"K2 {k2_off}, K4 {k4_off} ({steps_off} steps × 2)"
     )
-    if k2_off != 0 or k4_off != 2 * steps_off or steps_off == 0:
+    if k2_off != 0 or k35_off != 0 or k4_off != 2 * steps_off or steps_off == 0:
         fail(f"off: K2 launched {k2_off} times (expected 0), K4 {k4_off} (expected {2 * steps_off})")
     for a, b in zip(results, results_off):
         if not np.array_equal(a.tokens, b.tokens) or a.length != b.length:
@@ -594,7 +913,9 @@ def main() -> None:
     from whisper_tpu_torch.config import EngineConfig
     from whisper_tpu_torch.decode import beam
     from whisper_tpu_torch.engine import EngineType, Monolith, create_engine
-    from whisper_tpu_torch.ops import attention, build, fused_step, gather
+    from whisper_tpu_torch.frontend import mel_fused
+    from whisper_tpu_torch.ops import attention, build, fused_step, gather, gather_attend
+    from whisper_tpu_torch.utils import probe_fused
 
     log("[1] card")
     card = card_line()
@@ -605,7 +926,7 @@ def main() -> None:
 
     log("[2] build")
     t0 = time.perf_counter()
-    kernels = (attention, fused_step, gather)
+    kernels = (attention, fused_step, gather, gather_attend, mel_fused)
     built = build.build([k.KERNEL for k in kernels])
     log(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (secs, ptxas) in built.items():
@@ -613,27 +934,32 @@ def main() -> None:
         log(f"  {name}.cu: nvcc {secs:.2f} s; " + " | ".join(usage))
 
     log("[3] kernels against their plain versions")
-    records = [
+    k1, k2, k4 = (
         phase_kernels(torch, attention),
         phase_permute_append(torch, fused_step),
         phase_permute_rows(torch, gather),
-    ]
+    )
+    k3 = phase_gather_attend(torch, gather_attend, fused_step)
+    k5 = phase_mel_fused(torch, mel_fused)
 
     log("[4] main path: large-v3, greedy, bf16, language detection")
-    records[0]["launches"] = phase_main_path(
+    k1["launches"] = phase_main_path(
         torch, kernels, EngineConfig, EngineType, create_engine
     )
 
     log("[4b] beam main path: large-v3, beam 5, int8 weights, fp8 KV cache, bf16")
-    records[1]["launches"], records[2]["launches"] = phase_beam_path(
+    k2["launches"], k4["launches"] = phase_beam_path(
         torch, kernels, beam, EngineConfig, EngineType, create_engine
     )
+
+    log("[4c] K3's path: probe_fused at large-v3, batch 4, beam 5, ctx 68, fp8 planes")
+    k3["launches"] = phase_probe_fused(torch, kernels, probe_fused)
 
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({
         "ok": True,

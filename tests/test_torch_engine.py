@@ -150,6 +150,8 @@ def test_import_leaves_jax_triton_and_reference_out():
         "import whisper_tpu_torch.ops.build, whisper_tpu_torch.models.params\n"
         "import whisper_tpu_torch.decode.beam, whisper_tpu_torch.ops.fused_step\n"
         "import whisper_tpu_torch.ops.gather, whisper_tpu_torch.models.quantize\n"
+        "import whisper_tpu_torch.ops.gather_attend, whisper_tpu_torch.frontend.mel_fused\n"
+        "import whisper_tpu_torch.utils.probe_fused\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or m == 'whisper_tpu'"
         " or m.startswith(('jax.', 'triton.', 'whisper_tpu.'))]\n"
         "assert not bad, bad\n"

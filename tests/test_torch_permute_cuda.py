@@ -106,6 +106,10 @@ def test_refusals(card):
     new = torch.zeros(2, 3, device=card)
     with pytest.raises(ValueError):
         tf.permute_append(planes, planes.clone(), idx, 0, 1, 0, new, new)
+    planes = torch.zeros(2, 1, 2, 4, 8, device=card)
+    unaligned = torch.zeros(2 * 8 + 1, device=card)[1:].view(2, 8)
+    with pytest.raises(ValueError):  # new rows in the storage dtype at a 4-byte offset
+        tf.permute_append(planes, planes.clone(), idx, 0, 1, 0, unaligned, unaligned)
     x = torch.zeros(1, 2, 8, device=card)
     with pytest.raises(TypeError):
         tg.permute_rows(x, idx.long())

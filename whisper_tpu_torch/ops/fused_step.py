@@ -103,6 +103,9 @@ def permute_append(
     # The kernel moves bytes only: the new rows go to the storage dtype here.
     kn = k_new.to(cache_k.dtype).contiguous()
     vn = v_new.to(cache_v.dtype).contiguous()
+    for name, t in (("k_new", kn), ("v_new", vn)):
+        if t.data_ptr() % _VEC:  # a view at an unaligned offset, passed through as is
+            raise ValueError(f"{KERNEL}: {name} in the storage dtype must be 16-byte aligned")
     rc = _library().permute_append(
         cache_k.data_ptr(), cache_v.data_ptr(), kn.data_ptr(), vn.data_ptr(), idx.data_ptr(),
         n_layer, bk, ctx, hd * isz // _VEC, int(layer), int(pos), int(parity),

@@ -11,7 +11,8 @@ device-kernel time, the device busy share (kernel time / wall; kernels run
 on one stream, so their sum is the busy time), the kernel launch count, and
 the kernels that take the most device time, and the share of device time
 and the launches of each of the port's own kernels (K1 ``flash_attn_fwd``,
-K2 ``permute_append``, K4 ``permute_rows``), found in the trace by each
+K2 ``permute_append``, K4 ``permute_rows``; K3 ``gather_attend`` and K5
+``log_mel_fused``, which the engine does not run, must count 0), found in the trace by each
 module's ``KERNEL_SYMBOL``. It exits non-zero if the trace's count of an
 own kernel differs from its wrapper's ``launches`` count over the stage.
 ``--beam``, ``--quantization``
@@ -32,9 +33,10 @@ import numpy as np
 
 
 def _own_kernels():
-    from whisper_tpu_torch.ops import attention, fused_step, gather
+    from whisper_tpu_torch.frontend import mel_fused
+    from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend
 
-    return (attention, fused_step, gather)
+    return (attention, fused_step, gather, gather_attend, mel_fused)
 
 
 def _stage(torch, fn, label: str, top: int = 8) -> dict:
