@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``reference_gather_attend``; K5: 2e-4 in log-mel units, also against
    ``frontend/mel.py``); times of the kernel, the plain version and the
    library call (or the nearest composite, labelled) beside the bound.
-   K5's path is its entry point on the main path's batch: one launch.
+   K5's path is its entry point on the main path's batch: one launch. K2′
+   (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
+   a batch of 4 on 2 ranks, with global source rows.
 4. Greedy main path at full width: ``create_engine(MONOLITH, EngineConfig(
    model="large-v3", max_new_tokens=64), device="cuda")`` with random
    weights from a seed; ``transcribe_batch`` of 4 utterances of different
@@ -35,11 +37,22 @@ Phases, in order; any failure exits non-zero before the last line:
    never), "dma" and "hybrid" (K2 32 × steps, K3 never), ms per 32-layer
    step each; then one step of "attend" against one of "hybrid": gathered
    windows bitwise, ``h`` within ``probe_fused.compare_runs``' tolerance.
+4d. The data-parallel path at full width: phase 4b's config with
+   ``mesh_shape=(2, 1)``: two ranks, two processes of
+   ``parallel/_dist_worker`` on this one card in a gloo world, each
+   ``transcribe_batch`` of the same 4 utterances and decoding its 2. Each
+   rank must hold phase 4b's weights (checksum), launch K2′ once per
+   decoder layer of every step, K1 once per encoder layer, K2 and K4
+   never, and return the same 4 results as the other; each rank's rows
+   must equal a run of the same 2 rows in this process, with the crop the
+   ranks used. Agreement with phase 4b's batch-4 tokens is printed only.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
-   card's "hybrid", the card's "off" and the CPU's "off"; and beam 3 with
-   int8 weights and the fp8 KV cache, card "hybrid" against CPU "off".
+   card's "hybrid", the card's "off" and the CPU's "off"; beam 3 with int8
+   weights and the fp8 KV cache, card "hybrid" against CPU "off"; and beam
+   3 on two ranks on the card (``mesh_shape=(2, 1)``) under "hybrid" (K2′)
+   and "off" against CPU "off".
 
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -310,6 +323,89 @@ def phase_permute_append(torch, fused_step) -> dict:
                 "library_ms": lib_ms, "shape": list(shape), "dtype": FP8, "pos": pos,
                 "distinct_sources": n_src, "permutation_ms": perm_ms,
                 "permutation_bound_ms": perm_bound,
+            }
+    return record
+
+
+def phase_permute_append_sharded(torch, fused_step) -> dict:
+    """K2′ against its plain version, bitwise, on one rank's planes of the
+    data-parallel beam path (large-v3 beam 5, a batch of 4 on 2 ranks:
+    planes [2, 32, 10, 68, 1280]) with rank 1's global source rows (10..19,
+    each within its sample, a duplicate always), fp8 at pos 35 (the record)
+    and bf16 at pos 67, both parities, plus a tiny f32 shape. K2's count
+    must not move. Timed beside its bound, the plain version and
+    ``index_select`` of the localised K and V windows."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [((2, 32, 10, 68, 1280), getattr(torch, FP8), 5, 35),
+             ((2, 32, 10, 68, 1280), torch.bfloat16, 5, 67),
+             ((2, 4, 6, 40, 384), torch.float32, 3, 17)]
+    record = None
+    for shape, dt, beam, pos in cases:
+        _, n_layer, bk, ctx, hd = shape
+        src = torch.randint(0, beam, (bk,), generator=gen, device="cuda")
+        src[1] = src[0]
+        idx = (bk + (torch.arange(bk, device="cuda") // beam) * beam + src).to(torch.int32)
+        layer = n_layer // 2
+        planes = [(4 * torch.randn(shape, generator=gen, device="cuda")).to(dt) for _ in range(2)]
+        new = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+        err = 0.0
+        k2_before = fused_step.launches
+        for parity in (0, 1):
+            ck, cv = (p.clone() for p in planes)
+            rk, rv = (p.clone() for p in planes)
+            fused_step.permute_append_sharded(ck, cv, idx, layer, pos, parity, *new, beam=beam)
+            fused_step.permute_append_sharded_reference(rk, rv, idx, layer, pos, parity, *new, beam=beam)
+            torch.cuda.synchronize()
+            w = 1 - parity
+            for a, b in ((ck, rk), (cv, rv)):
+                win_a, win_b = a[w, layer, :, : pos + 1], b[w, layer, :, : pos + 1]
+                same = all(
+                    torch.equal(_as_bytes(x), _as_bytes(y))
+                    for x, y in ((win_a, win_b), (a[parity], b[parity]),
+                                 (a[w, :layer], b[w, :layer]), (a[w, layer + 1:], b[w, layer + 1:]))
+                )
+                if not same:
+                    fail(f"K2′ differs from its plain version at {list(shape)} {dt} pos {pos} parity {parity}")
+                err = max(err, (win_a.float() - win_b.float()).abs().max().item())
+        if fused_step.launches != k2_before:
+            fail("K2′ launched K2")
+        # Bytes this run's data needs moved, as K2's record counts them.
+        local = fused_step.localize(idx, beam)
+        isz = planes[0].element_size()
+        n_src = int(torch.unique(local).numel())
+        bound = bytes_bound_ms(2 * hd * isz * (n_src * pos + bk + bk * (pos + 1)))
+        stored = [n.to(dt) for n in new]
+        kern_ms = time_ms(lambda: fused_step.permute_append_sharded(
+            ck, cv, idx, layer, pos, 0, *stored, beam=beam))
+        log(
+            f"  K2′ {list(shape)} {str(dt)[6:]} pos {pos}, global rows {bk}..{2 * bk - 1}: bitwise "
+            f"equal (both parities); kernel {kern_ms:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes; {n_src} distinct of {bk} source rows)"
+        )
+        if record is None:
+            plain_ms = time_ms(lambda: fused_step.permute_append_sharded_reference(
+                ck, cv, idx, layer, pos, 0, *stored, beam=beam))
+            srcs = [_as_bytes(p)[0, layer, :, :pos] for p in (ck, cv)]
+            dsts = [torch.empty_like(s, memory_format=torch.contiguous_format) for s in srcs]
+
+            def library():  # index_select of the localised windows: the gather only
+                for s_, d_ in zip(srcs, dsts):
+                    torch.index_select(s_, 0, local, out=d_)
+
+            lib_ms = time_ms(library)
+            local32 = local.int()
+            k2_ms = time_ms(lambda: fused_step.permute_append(ck, cv, local32, layer, pos, 0, *stored))
+            log(f"    plain {plain_ms:.4f} ms, index_select of the localised windows (gather only, "
+                f"no append) {lib_ms:.4f} ms; K2 on the same rows numbered locally {k2_ms:.4f} ms")
+            record = {
+                "name": "permute_append_sharded", "route": "cuda",
+                "source": "whisper_tpu_torch/csrc/permute_append.cu",
+                "replaces": "whisper_tpu/ops/fused_step.py:737",
+                "launches": None, "max_abs_err": err, "ms": kern_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": lib_ms, "library_call": "index_select x2 of the localised windows",
+                "shape": list(shape), "dtype": FP8, "pos": pos, "global_rows": [bk, 2 * bk - 1],
+                "distinct_sources": n_src, "k2_local_ms": k2_ms,
             }
     return record
 
@@ -640,7 +736,8 @@ def phase_probe_fused(torch, kernels, probe_fused) -> int:
         res = probe_fused.run(**args, iters=8, warmup=1, mode=mode)
         torch.cuda.synchronize()
         k3, k2 = gather_attend.launches, fused_step.launches
-        others = attention.launches + gather.launches + mel_fused.launches  # counts end here
+        others = (attention.launches + gather.launches + mel_fused.launches
+                  + fused_step.sharded_launches)  # counts end here
         expect = LARGE_V3_DEC_LAYERS * res["steps"]
         log(f"  {mode}: {res['ms_per_step']:.4f} ms per {res['layers']}-layer step "
             f"({res['gb'] / res['ms_per_step'] * 1e3:.0f} GB/s of {res['gb']:.3f} GB r+w); "
@@ -700,6 +797,8 @@ def main_path_batch():
 def reset_counts(*modules) -> None:
     for m in modules:
         m.launches = 0
+        if hasattr(m, "sharded_launches"):  # K2′ counts beside K2 in ops/fused_step.py
+            m.sharded_launches = 0
 
 
 def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> int:
@@ -728,7 +827,7 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     host, _, _ = engine._prepare_batch(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc_out = engine._encode(host)
+    enc_out = engine._encode(host, engine._resolve_audio_ctx(host))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tokens, lengths, _, _ = engine._decode(enc_out)
@@ -744,9 +843,10 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     encodes += 1
     check_results([single], engine, dims.n_vocab)
     launches = attention.launches  # counts end here
-    others = (fused_step.launches, gather.launches, gather_attend.launches, mel_fused.launches)
+    others = (fused_step.launches, gather.launches, gather_attend.launches, mel_fused.launches,
+              fused_step.sharded_launches)
     if any(others):
-        fail(f"greedy launched K2, K4, K3, K5 {others} times, expected none")
+        fail(f"greedy launched K2, K4, K3, K5, K2′ {others} times, expected none")
 
     log(
         f"  large-v3 bf16, batch 4 ({audio_s:.1f} s of audio): {wall * 1e3:.1f} ms "
@@ -766,7 +866,7 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
 
 def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engine) -> tuple:
     """Beam main path (docstring, phase 4b). Returns the K2 and K4 launch
-    counts of their runs."""
+    counts of their runs, the hybrid engine and its batch's results."""
     from whisper_tpu_torch.audio.wav import write_wav
 
     attention, fused_step, gather, gather_attend, mel_fused = kernels
@@ -794,7 +894,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     host, _, _ = engine._prepare_batch(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc_out = engine._encode(host)
+    enc_out = engine._encode(host, engine._resolve_audio_ctx(host))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     steps_before = beam.steps
@@ -810,7 +910,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     encodes += 1
     check_results([single], engine, dims.n_vocab)
     k1, k2, k4, steps = attention.launches, fused_step.launches, gather.launches, beam.steps
-    k3, k5 = gather_attend.launches, mel_fused.launches
+    k3, k5, k2s = gather_attend.launches, mel_fused.launches, fused_step.sharded_launches
     # counts end here
 
     log(
@@ -830,8 +930,8 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         fail(f"no decode steps ran ({steps}) or the decoder has {dims.n_text_layer} layers")
     if k1 != LARGE_V3_ENC_LAYERS * encodes:
         fail(f"K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS * encodes}")
-    if k3 or k5:
-        fail(f"hybrid: K3 launched {k3} times and K5 {k5}, expected none")
+    if k3 or k5 or k2s:
+        fail(f"hybrid: K3 launched {k3} times, K5 {k5}, K2′ {k2s}, expected none")
     if k2 != LARGE_V3_DEC_LAYERS * steps or k4 != 0:
         fail(f"hybrid: K2 launched {k2} times (expected {LARGE_V3_DEC_LAYERS * steps}), K4 {k4} (expected 0)")
 
@@ -856,7 +956,68 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         if not np.array_equal(a.tokens, b.tokens) or a.length != b.length:
             fail(f"hybrid and off tokens differ: {a.tokens[:a.length].tolist()} vs {b.tokens[:b.length].tolist()}")
     log("  hybrid and off tokens equal")
-    return k2, k4_off
+    return k2, k4_off, engine, results
+
+
+def phase_data_parallel(torch, beam_engine, beam_results) -> list:
+    """The flagship data-parallel path (docstring, phase 4d). Returns K2′'s
+    launches on each rank."""
+    from whisper_tpu_torch.parallel._dist_worker import launch, params_checksum
+
+    cfg = beam_engine.config
+    _, batch, audio_s = main_path_batch()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "batch.npy"), batch)
+        reports = launch(2, [
+            "--npy", os.path.join(tmp, "batch.npy"), "--model", cfg.model, "--seed", "0",
+            "--device", "cuda", "--dtype", cfg.dtype, "--beam", str(cfg.beam_size),
+            "--quantization", cfg.quantization, "--kv-cache-dtype", cfg.kv_cache_dtype,
+            "--fused-step", "auto", "--max-new", str(cfg.max_new_tokens),
+        ], tmp, timeout=600)
+    checksum = params_checksum(beam_engine.assets.params)
+    k2s = []
+    for rep in reports:
+        run = rep["runs"]["auto"]
+        n, steps = run["launches"], run["steps"]
+        rows_s = sum(LENGTHS_S[2 * rep["rank"]: 2 * rep["rank"] + 2])
+        log(f"  rank {rep['rank']} of {rep['world']} on {rep['device']} ({rep['device_name']}): "
+            f"{run['seconds'] * 1e3:.1f} ms for its 2 rows ({rows_s:.1f} s of audio) → "
+            f"{rows_s / run['seconds']:.2f} audio-s/s; launches K1 {n['flash_attn_fwd']}, "
+            f"K2 {n['permute_append']}, K2′ {n['permute_append_sharded']} ({steps} steps × "
+            f"{LARGE_V3_DEC_LAYERS} layers), K4 {n['permute_rows']}; weights checksum "
+            f"{rep['params_checksum']}")
+        if rep["params_checksum"] != checksum:
+            fail(f"rank {rep['rank']} holds other weights than phase 4b: {rep['params_checksum']} != {checksum}")
+        if steps == 0 or n["permute_append_sharded"] != LARGE_V3_DEC_LAYERS * steps:
+            fail(f"rank {rep['rank']}: K2′ launched {n['permute_append_sharded']} times over {steps} steps")
+        if n["permute_append"] or n["permute_rows"] or n["flash_attn_fwd"] != LARGE_V3_ENC_LAYERS * run["encodes"]:
+            fail(f"rank {rep['rank']}: K2 {n['permute_append']}, K4 {n['permute_rows']} (expected 0), "
+                 f"K1 {n['flash_attn_fwd']} (expected {LARGE_V3_ENC_LAYERS * run['encodes']})")
+        k2s.append(n["permute_append_sharded"])
+    results = reports[0]["runs"]["auto"]["results"]
+    if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
+        fail("the ranks returned different result lists")
+    wall = max(rep["runs"]["auto"]["seconds"] for rep in reports)
+    log(f"  both ranks: the same {len(results)} results; {audio_s / wall:.2f} audio-s/s over the "
+        f"slower rank (two ranks share one card: not a scaling number)")
+    # Each rank's rows against one process running the same rows at the
+    # same per-rank batch shape, with the crop the ranks resolved from the
+    # whole batch: the same kernels on the same shapes, so exactly equal.
+    single = type(beam_engine)(
+        beam_engine.assets, dataclasses.replace(cfg, audio_ctx=reports[0]["audio_ctx"]),
+        device=beam_engine.device,
+    )
+    for r in range(2):
+        rows = slice(2 * r, 2 * r + 2)
+        for g, s_ in zip(results[rows], single.transcribe_batch(batch[rows])):
+            if g["tokens"] != s_.tokens[: s_.length].tolist() or g["length"] != s_.length:
+                fail(f"rank {r}'s rows differ from a single-process run of them: {g['tokens']} vs "
+                     f"{s_.tokens[: s_.length].tolist()}")
+    log(f"  each rank's rows equal a single-process run of the same rows at batch 2 "
+        f"(audio_ctx {reports[0]['audio_ctx']})")
+    agree = sum(g["tokens"] == b.tokens[: b.length].tolist() for g, b in zip(results, beam_results))
+    log(f"  information: {agree} of {len(results)} rows equal phase 4b's single-process batch-4 run")
+    return k2s
 
 
 def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
@@ -902,6 +1063,34 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
                     fail(f"tiny f32 beam 3: {name} tokens {b.tokens[: b.length].tolist()} differ from {first}'s")
             log(f"  beam 3, {name}: equal")
 
+    # Two ranks on the card (mesh_shape=(2, 1)), both step modes, against
+    # the CPU's single-process run.
+    from whisper_tpu_torch.parallel._dist_worker import launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(params, os.path.join(tmp, "params.pt"))
+        np.save(os.path.join(tmp, "x.npy"), x)
+        reports = launch(2, [
+            "--npy", os.path.join(tmp, "x.npy"), "--params", os.path.join(tmp, "params.pt"),
+            "--model", cfg.model, "--device", "cuda", "--dtype", cfg.dtype, "--beam", "3",
+            "--fused-step", "hybrid,off", "--max-new", str(cfg.max_new_tokens),
+        ], tmp, timeout=300)
+    layers = cfg.dims().n_text_layer
+    for mode in ("hybrid", "off"):
+        for rep in reports:
+            run = rep["runs"][mode]
+            n, steps = run["launches"], run["steps"]
+            for g, b in zip(run["results"], runs["cpu off"]):
+                if g["tokens"] != b.tokens[: b.length].tolist():
+                    fail(f"tiny f32 beam 3, DP(2) {mode} on the card, rank {rep['rank']}: tokens "
+                         f"{g['tokens']} differ from the CPU's {b.tokens[: b.length].tolist()}")
+            want = (layers * steps, 0) if mode == "hybrid" else (0, 2 * steps)
+            if steps == 0 or (n["permute_append_sharded"], n["permute_rows"]) != want or n["permute_append"]:
+                fail(f"tiny DP(2) {mode}, rank {rep['rank']}: K2′ {n['permute_append_sharded']}, "
+                     f"K4 {n['permute_rows']}, K2 {n['permute_append']} over {steps} steps")
+        log(f"  beam 3, DP(2) on the card, {mode}: both ranks equal to cpu off "
+            f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
+
 
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -939,6 +1128,7 @@ def main() -> None:
         phase_permute_append(torch, fused_step),
         phase_permute_rows(torch, gather),
     )
+    k2s = phase_permute_append_sharded(torch, fused_step)
     k3 = phase_gather_attend(torch, gather_attend, fused_step)
     k5 = phase_mel_fused(torch, mel_fused)
 
@@ -948,18 +1138,23 @@ def main() -> None:
     )
 
     log("[4b] beam main path: large-v3, beam 5, int8 weights, fp8 KV cache, bf16")
-    k2["launches"], k4["launches"] = phase_beam_path(
+    k2["launches"], k4["launches"], beam_engine, beam_results = phase_beam_path(
         torch, kernels, beam, EngineConfig, EngineType, create_engine
     )
 
     log("[4c] K3's path: probe_fused at large-v3, batch 4, beam 5, ctx 68, fp8 planes")
     k3["launches"] = phase_probe_fused(torch, kernels, probe_fused)
 
+    log("[4d] data-parallel path: large-v3, beam 5, int8, fp8 KV, mesh_shape=(2, 1), two ranks on one card")
+    per_rank = phase_data_parallel(torch, beam_engine, beam_results)
+    k2s["launches"], k2s["launches_per_rank"] = sum(per_rank), per_rank
+    del beam_engine
+
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))
     print(card)
     print(json.dumps({
         "ok": True,

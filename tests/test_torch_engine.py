@@ -103,12 +103,14 @@ def test_wav_file_and_forced_language(jax_params, tmp_path):
 @pytest.mark.parametrize(
     "override",
     [
-        dict(beam_size=5, mesh_shape=(2, 1)),
+        dict(beam_size=5, mesh_shape=(1, 2)),
+        dict(beam_size=5, mesh_shape=(2, 2)),
         dict(temperature=0.4),
         dict(fallback_temperatures=(0.2, 0.4)),
         dict(word_timestamps=True),
         dict(draft_model="tiny"),
-        dict(mesh_shape=(2, 1)),
+        dict(mesh_shape=(1, 2)),
+        dict(mesh_shape=(2, 2)),
         dict(initial_prompt="hello"),
     ],
 )
@@ -152,6 +154,8 @@ def test_import_leaves_jax_triton_and_reference_out():
         "import whisper_tpu_torch.ops.gather, whisper_tpu_torch.models.quantize\n"
         "import whisper_tpu_torch.ops.gather_attend, whisper_tpu_torch.frontend.mel_fused\n"
         "import whisper_tpu_torch.utils.probe_fused\n"
+        "import whisper_tpu_torch.parallel, whisper_tpu_torch.parallel.mesh\n"
+        "import whisper_tpu_torch.parallel.multihost, whisper_tpu_torch.parallel._dist_worker\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or m == 'whisper_tpu'"
         " or m.startswith(('jax.', 'triton.', 'whisper_tpu.'))]\n"
         "assert not bad, bad\n"

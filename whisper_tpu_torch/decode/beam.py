@@ -27,7 +27,8 @@ Three step modes (:func:`resolve_fused`), with equal results:
 * ``"off"``: the eager step, then the cache reorder (:func:`reorder_cache`,
   K4 on a CUDA tensor) into a second buffer, and the two swap;
 * ``"hybrid"``: ping-pong planes; the permutation chosen at a step is
-  applied inside the next step by K2 (``decoder_step_fused``);
+  applied inside the next step by K2 (``decoder_step_fused``), by K2′ on
+  a rank of a data-parallel mesh;
 * ``"lineage"``: a slot-stationary cache and an ancestry mask
   (``decoder_step_lineage``); only the lineage table is permuted.
 
@@ -175,7 +176,9 @@ def _lengths_of(tokens: torch.Tensor, p_len: int, eot: int) -> torch.Tensor:
     return torch.where(is_eot.any(dim=-1), p_len + first + 1, tokens.shape[-1])
 
 
-def resolve_fused(fused, dims: ModelDims, device: torch.device, kv_dtype: torch.dtype) -> str:
+def resolve_fused(
+    fused, dims: ModelDims, device: torch.device, kv_dtype: torch.dtype, tp: int = 1
+) -> str:
     """The beam step mode → "off" | "hybrid" | "lineage".
 
     * ``"auto"``: "hybrid" for a CUDA cache whose geometry K2 takes, "off"
@@ -186,20 +189,27 @@ def resolve_fused(fused, dims: ModelDims, device: torch.device, kv_dtype: torch.
       version);
     * ``True`` / ``False``: "hybrid" / "off", as in JAX.
 
-    JAX's ``tp`` (a tensor-parallel mesh) has no counterpart: the engine
-    refuses a mesh until multi-device is ported."""
+    ``tp`` is the model-axis size of the mesh (1 without one, or on a
+    data-parallel mesh, where "hybrid" runs K2′). K2's rows span the whole
+    merged head dim, so as in JAX a tensor-parallel mesh refuses "hybrid":
+    asked for, it raises; "auto" and ``True`` fall back to "off"."""
     from whisper_tpu_torch.ops.fused_step import supported
 
     device = torch.device(device)
     takes = supported(dims.n_text_state, kv_dtype.itemsize)
     if fused == "auto":
-        return "hybrid" if device.type == "cuda" and takes else "off"
+        return "hybrid" if device.type == "cuda" and takes and tp == 1 else "off"
     if fused is True:
-        fused = "hybrid"
+        fused = "hybrid" if tp == 1 else "off"
     elif fused is False:
         fused = "off"
     if fused not in MODES:
         raise ValueError(f"fused_step must be 'auto', one of {MODES} or a bool, got {fused!r}")
+    if fused == "hybrid" and tp > 1:
+        raise ValueError(
+            f"fused_step='hybrid' cannot run on a tensor-parallel mesh (model axis size "
+            f"{tp}): K2's rows span the full merged head dim; use 'auto', 'lineage' or 'off'"
+        )
     if fused == "hybrid" and device.type == "cuda" and not takes:
         raise ValueError(
             f"fused_step='hybrid': K2 does not take merged head dim "
@@ -265,11 +275,18 @@ def beam_decode(
     kv_cache_dtype: Optional[torch.dtype] = None,  # storage (None: compute dtype)
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
     fused="auto",  # step mode, see resolve_fused
+    mesh=None,  # parallel.mesh.Mesh when this is one rank of a mesh
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, P+max_new], lengths [B], scores [B]) of the best
     finished hypothesis per batch item (length-normalised score), plus
     (no_speech_probs [B],) when ``no_speech`` is given (the softmax
-    probability of ``<|nospeech|>`` in the prefill logits at SOT)."""
+    probability of ``<|nospeech|>`` in the prefill logits at SOT).
+
+    On a data-parallel ``mesh`` the B utterances are this rank's
+    contiguous share, rank ``mesh.data_index`` of equal shares. Selection
+    stays local, since a beam permutation never crosses samples; under
+    "hybrid" the pending permutation is numbered by global row, ``(row0 +
+    b) · K + src``, so that K2′ receives what JAX's shard receives."""
     global steps
     b, p_len = prompt.shape
     k = beam_size
@@ -280,7 +297,10 @@ def beam_decode(
     device = enc_out.device
     prompt = prompt.to(device=device, dtype=torch.long)
     store = kv_cache_dtype or compute_dtype
-    mode = resolve_fused(fused, dims, device, store)
+    tp = mesh.shape[mesh.axis_names[1]] if mesh is not None else 1
+    mode = resolve_fused(fused, dims, device, store, tp=tp)
+    # Global number of this rank's first beam row.
+    row0 = mesh.data_index * bk if mesh is not None else 0
     if cross_kv is None:
         cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype)
 
@@ -357,7 +377,7 @@ def beam_decode(
         parity = 0
         # Rows within a sample are identical after the fan-out: the first
         # pending permutation is the identity.
-        pending = torch.arange(bk, dtype=torch.int32, device=device)
+        pending = torch.arange(row0, row0 + bk, dtype=torch.int32, device=device)
     elif mode == "lineage":
         lineage = init_lineage(b, k, total_len, p_len, device=device)
     else:
@@ -369,7 +389,7 @@ def beam_decode(
         if mode == "hybrid":
             logits, cache = decoder_step_fused(
                 params, prev, pos - 1, cache, parity, pending, cross_kv, dims,
-                compute_dtype, beam_width=k,
+                compute_dtype, beam_width=k, sharded=mesh is not None,
             )
         elif mode == "lineage":
             logits, cache, lineage = decoder_step_lineage(
@@ -384,7 +404,7 @@ def beam_decode(
         tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)
         if mode == "hybrid":
             # Not applied now: the next step's K2 reads through it.
-            parity, pending = 1 - parity, act_rows.to(torch.int32)
+            parity, pending = 1 - parity, (row0 + act_rows).to(torch.int32)
         elif mode == "lineage":
             lineage = lineage[act_rows]
         else:

@@ -11,6 +11,12 @@ eagerly, so the two engine kinds differ only in what they time:
 ``Monolith`` reports the whole run as ``model_ms``; ``EncDec`` reports the
 frontend and encoder as ``mel_ms`` and the decode as ``model_ms``.
 
+``mesh_shape=(d, 1)`` runs the engine as one rank of a data-parallel
+world of d processes (``parallel/``, over gloo): each rank encodes and
+decodes its contiguous share of the batch (beam "hybrid" through K2′), and
+every rank returns the full, ordered result list. ``transcribe_files``
+reads on each rank only that rank's files.
+
 Entry points take ``device=`` and default to ``"cuda"``: asking for CUDA
 where there is none raises, and the CPU runs only when asked for. Config
 options outside this slice raise ``NotImplementedError`` at construction.
@@ -40,6 +46,14 @@ from whisper_tpu_torch.models.decoder import precompute_cross_kv
 from whisper_tpu_torch.models.encoder import encode
 from whisper_tpu_torch.models.params import Params, init_params, to_device
 from whisper_tpu_torch.models.quantize import is_quantized, quantize_params
+from whisper_tpu_torch.parallel.mesh import make_mesh, rank_device
+from whisper_tpu_torch.parallel.multihost import (
+    allgather_rows,
+    host_shard,
+    load_files_sharded,
+    uniform_host_rows,
+    world_size,
+)
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
@@ -129,8 +143,8 @@ def _unsupported(config: EngineConfig) -> List[str]:
         out.append("word_timestamps=True")
     if config.draft_model is not None:
         out.append("draft_model (speculative decoding)")
-    if int(np.prod(config.mesh_shape)) > 1:
-        out.append(f"mesh_shape={tuple(config.mesh_shape)}")
+    if int(np.prod(config.mesh_shape[1:])) > 1:
+        out.append(f"tensor parallelism: mesh_shape={tuple(config.mesh_shape)} (model axis > 1)")
     if config.initial_prompt is not None:
         out.append("initial_prompt text (BPE encoder)")
     return out
@@ -162,6 +176,13 @@ class Engine:
         if config.quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization: {config.quantization!r}")
         self.device = resolve_device(device)
+        # A data-parallel mesh: this process is one rank of it, on its device.
+        self.mesh = None
+        if int(np.prod(config.mesh_shape)) > 1:
+            self.mesh = make_mesh(
+                tuple(config.mesh_shape), tuple(config.mesh_axis_names), device=self.device
+            )
+            self.device = self.mesh.device
         self.config = config
         self.dims = assets.dims
         self.vocab = assets.vocab
@@ -223,16 +244,17 @@ class Engine:
             self._logit_bias = None
 
     # --- stages ------------------------------------------------------------
-    def _encode(self, batch: np.ndarray) -> torch.Tensor:
-        """Host batch → cropped encoder output on the device."""
-        ac = self._resolve_audio_ctx(batch)
+    def _encode(self, batch: np.ndarray, audio_ctx: Optional[int]) -> torch.Tensor:
+        """Host rows → encoder output on the device, cropped to
+        ``audio_ctx`` positions (None: the full window; see
+        :meth:`_resolve_audio_ctx`)."""
         samples = self._place_batch(batch)
         mel = log_mel_spectrogram(
             samples, self._filters, n_mels=self.dims.n_mels, compute_dtype=torch.float32
         )
         enc_out = encode(self.assets.params, mel.to(self._compute_dtype), self.dims)
-        if ac is not None and ac < enc_out.shape[1]:
-            enc_out = enc_out[:, :ac]
+        if audio_ctx is not None and audio_ctx < enc_out.shape[1]:
+            enc_out = enc_out[:, :audio_ctx]
         return enc_out
 
     def _make_prompts(self, enc_out: torch.Tensor):
@@ -282,20 +304,33 @@ class Engine:
         if self.config.beam_size > 1:
             out = beam_decode(
                 self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
-                fused=self.config.fused_step, **common,
+                fused=self.config.fused_step, mesh=self.mesh, **common,
             )
             return out[0], out[1], out[2], out[3] if ns else None
         out = greedy_decode(self.assets.params, enc_out, prompts, **common)
         return out[0], out[1], None, out[2] if ns else None
 
-    def _run(self, batch: np.ndarray):
-        """One device run → (tokens, lengths, avg_logprob or None, no_speech
-        probs or None) on the host, plus (mel_ms, model_ms)."""
+    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
+        """One device run of this rank's rows → (tokens, lengths,
+        avg_logprob or None, no_speech probs or None) of every rank's rows
+        on the host (:meth:`_to_host`), plus (mel_ms, model_ms)."""
         raise NotImplementedError
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _to_host(self, outs) -> list:
+        """Device → host, across the ranks on a mesh: every rank ends up with
+        every rank's rows, in rank order. Token ids and lengths come back as
+        int32, as in JAX."""
+        host = [
+            None if x is None else (x.int() if not x.is_floating_point() else x).cpu().numpy()
+            for x in outs
+        ]
+        if self.mesh is None:
+            return host
+        return [None if x is None else allgather_rows(x) for x in host]
 
     # --- host side ---------------------------------------------------------
     def _prepare_batch(self, samples: np.ndarray):
@@ -304,6 +339,9 @@ class Engine:
         samples n)."""
         b = samples.shape[0]
         padded_b = batch_bucket(b)
+        if self.mesh is not None:  # whole, equal shares per rank
+            d = self.mesh.data_size
+            padded_b = -(-padded_b // d) * d
         n = min(samples.shape[1], N_SAMPLES)
         if self.config.audio_transfer_dtype == "int16":
             # Ship audio at the WAV's native width; _place_batch converts on
@@ -328,10 +366,13 @@ class Engine:
             x = x.float() * (1.0 / 32768.0)
         return x
 
-    def _resolve_audio_ctx(self, batch: np.ndarray) -> Optional[int]:
+    def _resolve_audio_ctx(self, batch: Optional[np.ndarray]) -> Optional[int]:
         """``config.audio_ctx`` (None | int | "auto") → the crop for this
         batch (None = full window). "auto" reads the last non-zero sample
-        column of the prepared host batch."""
+        column of the prepared host batch: the global batch, which every
+        rank holds, so all ranks crop alike. Without a batch (None: the
+        multi-process file path, where a rank holds only its own rows)
+        "auto" is the full window, for the same reason."""
         ac = self.config.audio_ctx
         full = self.dims.n_audio_ctx
         if ac is None:
@@ -339,6 +380,8 @@ class Engine:
         if ac != "auto":
             ac = int(ac)
             return ac if ac < full else None
+        if batch is None:
+            return None
         return snap_audio_ctx(last_content_index(np.asarray(batch)), full)
 
     def _read_audio(self, path: str) -> np.ndarray:
@@ -364,8 +407,12 @@ class Engine:
         samples: np.ndarray,  # [B, n] float32, any n (padded/truncated to 30 s)
         omit_special_tokens: bool = True,
     ) -> List[TranscriptionResult]:
+        """On a mesh every rank passes the whole batch, decodes its share
+        and returns every row's result."""
         batch, b, _n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
-        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(batch)
+        ac = self._resolve_audio_ctx(batch)
+        rows = batch if self.mesh is None else self.mesh.local_rows(batch)
+        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(rows, ac)
         return [
             self.result_from_tokens(
                 tokens[i], int(lengths[i]), omit_special_tokens,
@@ -381,6 +428,63 @@ class Engine:
     ) -> List[List[TranscriptionResult]]:
         """Transcribe a sequence of batches, one after the other."""
         return [self.transcribe_batch(b, omit_special_tokens) for b in batches]
+
+    def transcribe_files(
+        self, paths: Sequence[str], omit_special_tokens: bool = True
+    ) -> List[TranscriptionResult]:
+        """Batch file transcription: N files → one padded [N, 480000] host
+        batch → one run. On a mesh of several processes each rank reads
+        only its share of ``paths`` (``parallel/multihost.py``), and every
+        rank returns the full, path-ordered result list."""
+        if self.mesh is not None and world_size() > 1:
+            # JAX's temperature-fallback ladder is not carried over: sampling
+            # is not ported (the engine refuses it).
+            rows, mel_ms, model_ms = self._mp_pass(paths)
+            return [
+                self.result_from_tokens(
+                    toks, length, omit_special_tokens, mel_ms=mel_ms, model_ms=model_ms,
+                    avg_logprob=lp, no_speech_prob=nsp,
+                )
+                for toks, length, lp, nsp in rows
+            ]
+        batch = np.zeros((len(paths), N_SAMPLES), dtype=np.float32)
+        for i, p in enumerate(paths):
+            s = self._read_audio(p)
+            n = min(len(s), N_SAMPLES)
+            batch[i, :n] = s[:n]
+        return self.transcribe_batch(batch, omit_special_tokens)
+
+    def _mp_pass(self, path_list: Sequence[str]):
+        """One pass over ``path_list`` on every rank: each rank reads its
+        files into the uniform row count, runs them, and the gathered rows
+        are mapped back to path order. Returns (per-path [(tokens, length,
+        avg_logprob, no_speech_prob)], mel_ms, model_ms).
+
+        The gathered rows are rank-major, every rank padded to the same
+        ``uniform_host_rows`` count; the row → path mapping is rebuilt from
+        the same shard function, so every rank computes the same rows. The
+        rows ship as float32 and "auto" crops to the full window, as on
+        JAX's multi-process path."""
+        rows, _ = load_files_sharded(
+            path_list, self.mesh, max_len=N_SAMPLES, read=self._read_audio
+        )
+        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(
+            rows, self._resolve_audio_ctx(None)
+        )
+        per_host = uniform_host_rows(len(path_list), self.mesh)
+        out: List[Optional[tuple]] = [None] * len(path_list)
+        pc = world_size()
+        for p in range(pc):
+            s, e = host_shard(len(path_list), p, pc)
+            row = p * per_host
+            for i in range(e - s):
+                out[s + i] = (
+                    np.asarray(tokens[row + i]),
+                    int(lengths[row + i]),
+                    None if avg_lp is None else float(avg_lp[row + i]),
+                    None if nsp is None else float(nsp[row + i]),
+                )
+        return out, mel_ms, model_ms
 
     def result_from_tokens(
         self,
@@ -439,6 +543,8 @@ class Engine:
         ``device`` from a generator seeded with ``seed``. The numbers differ
         from the JAX package's ``from_random`` (another PRNG)."""
         device = resolve_device(device)
+        if int(np.prod(config.mesh_shape)) > 1:
+            device = rank_device(device)  # every rank draws the same weights on its card
         dims = config.dims()
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(dims, gen, dtype=getattr(torch, config.dtype), device=device)
@@ -469,32 +575,25 @@ class Engine:
         return cls(_Assets(params, dims, vocab, filters), config, device=device)
 
 
-def _host(x: Optional[torch.Tensor]) -> Optional[np.ndarray]:
-    """Device → host; token ids and lengths come back as int32, as in JAX."""
-    if x is None:
-        return None
-    return (x.int() if not x.is_floating_point() else x).cpu().numpy()
-
-
 class Monolith(Engine):
     """The whole pipeline as one run (reference whisper.cpp:667-738): pad →
     mel → encode → decode → token IDs."""
 
-    def _run(self, batch: np.ndarray):
+    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
         t0 = time.perf_counter()
-        out = [_host(x) for x in self._decode(self._encode(batch))]
+        out = self._to_host(self._decode(self._encode(batch, audio_ctx)))
         return (*out, None, (time.perf_counter() - t0) * 1e3)
 
 
 class EncDec(Engine):
     """Separate encode and decode stages (reference whisper.cpp:740-776)."""
 
-    def _run(self, batch: np.ndarray):
+    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
         t0 = time.perf_counter()
-        enc_out = self._encode(batch)
+        enc_out = self._encode(batch, audio_ctx)
         self._sync()
         t1 = time.perf_counter()
-        out = [_host(x) for x in self._decode(enc_out)]
+        out = self._to_host(self._decode(enc_out))
         t2 = time.perf_counter()
         return (*out, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
 

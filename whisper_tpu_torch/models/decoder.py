@@ -4,8 +4,8 @@ Counterpart of ``whisper_tpu/models/decoder.py``: ``init_kv_cache``,
 ``precompute_cross_kv``, ``_decoder_forward`` for a shared (scalar)
 position with beam widths, ``decoder_prefill``, ``decoder_step``, and the
 beam step modes: ``plane_cache_from_prefill`` + ``decoder_step_fused``
-("hybrid", through K2) and ``init_lineage`` + ``decoder_step_lineage``
-("lineage"). Per-row positions, ``merged_read``, ``decoder_window`` and the
+("hybrid", through K2, or K2′ on a rank of a data-parallel mesh) and
+``init_lineage`` + ``decoder_step_lineage`` ("lineage"). Per-row positions, ``merged_read``, ``decoder_window`` and the
 segment-growth helpers (``grow_plane_cache``, ``grow_lineage``) are not
 ported: the port preallocates one cache of ``p_len + max_new`` positions.
 
@@ -223,6 +223,8 @@ def decoder_step_fused(
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
     beam_width: int = 1,
+    sharded: bool = False,  # a rank of a data-parallel mesh: the cache holds
+    # this rank's rows and pending_idx their GLOBAL source rows (K2′)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One beam step with the pending permutation applied by K2
     (``ops/fused_step.permute_append``): per layer, K2 makes plane ``1 -
@@ -234,9 +236,13 @@ def decoder_step_fused(
     ``pending_idx``, bitwise. JAX's block-diagonal merged read, which suits
     XLA on the TPU's matrix unit, is not carried over.
 
+    ``sharded``: the per-layer call is K2′ (``permute_append_sharded``,
+    which makes the global rows local with ``beam_width``), as JAX's step
+    on a mesh (``mesh=``) runs it per data shard.
+
     Returns (logits [BK, V] f32, cache with plane ``1 - parity`` current);
     the caller flips the parity."""
-    from whisper_tpu_torch.ops.fused_step import permute_append
+    from whisper_tpu_torch.ops.fused_step import permute_append, permute_append_sharded
 
     dec = params["decoder"]
     pos, parity = int(pos), int(parity)
@@ -245,10 +251,11 @@ def decoder_step_fused(
 
     def self_kv(layer, q, k_new, v_new):
         bk, _, h, dh = k_new.shape
-        permute_append(
-            ck, cv, pending_idx, layer, pos, parity,
-            k_new.reshape(bk, h * dh), v_new.reshape(bk, h * dh),
-        )
+        rows = (k_new.reshape(bk, h * dh), v_new.reshape(bk, h * dh))
+        if sharded:
+            permute_append_sharded(ck, cv, pending_idx, layer, pos, parity, *rows, beam=beam_width)
+        else:
+            permute_append(ck, cv, pending_idx, layer, pos, parity, *rows)
         win = (p[1 - parity, layer, :, : pos + 1].view(bk, pos + 1, h, dh) for p in (ck, cv))
         return (q, *win, None)
 

@@ -151,7 +151,7 @@ def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
         return _tensor_from_numpy(x).to(device)
 
     def unstack(blocks) -> list:
-        n = len(next(iter(_leaves(blocks))))
+        n = len(next(iter(leaves(blocks))))
         return [_map(lambda _n, x: x[i], blocks) for i in range(n)]
 
     def convert(sub: dict) -> dict:
@@ -174,10 +174,11 @@ def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
     return convert(tree)
 
 
-def _leaves(tree):
+def leaves(tree):
+    """Every leaf of a parameter tree, in the tree's order."""
     if isinstance(tree, (dict, list)):
         for v in tree.values() if isinstance(tree, dict) else tree:
-            yield from _leaves(v)
+            yield from leaves(v)
     else:
         yield tree
 

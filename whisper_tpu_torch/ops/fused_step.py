@@ -1,15 +1,19 @@
-"""Pending beam permutation plus append on ping-pong KV planes (K2).
+"""Pending beam permutation plus append on ping-pong KV planes (K2), and
+the same on one data shard of a mesh (K2′).
 
-Counterpart of ``permute_append`` in ``whisper_tpu/ops/fused_step.py``, the
-kernel of the beam step mode ``"hybrid"`` (``models/decoder.py``
-``decoder_step_fused``). The cache is a plane pair ``[2, L, BK, ctx, HD]``
-(HD = H·Dh) in its storage dtype; one call, for one layer, makes the write
-plane ``1 - parity`` the read plane ``parity`` gathered by ``idx`` (the
-beam permutation chosen at the previous step) with this step's new K/V
-rows at ``pos``. A CUDA tensor runs the hand-written kernel
-``csrc/permute_append.cu``; a CPU tensor runs
-:func:`permute_append_reference`, the plain version. There is no fallback:
-a CUDA tensor the kernel does not take raises.
+Counterpart of ``permute_append`` and ``permute_append_sharded`` in
+``whisper_tpu/ops/fused_step.py``, the kernels of the beam step mode
+``"hybrid"`` (``models/decoder.py`` ``decoder_step_fused``). The cache is a
+plane pair ``[2, L, BK, ctx, HD]`` (HD = H·Dh) in its storage dtype; one
+call, for one layer, makes the write plane ``1 - parity`` the read plane
+``parity`` gathered by ``idx`` (the beam permutation chosen at the
+previous step) with this step's new K/V rows at ``pos``. K2′ is K2 on a
+rank of a data-parallel mesh: the planes hold the rank's rows, ``idx`` their
+global source rows, made local in the kernel. A CUDA tensor runs the
+hand-written kernels of ``csrc/permute_append.cu``; a CPU tensor runs
+:func:`permute_append_reference` or :func:`permute_append_sharded_reference`,
+the plain versions. There is no fallback: a CUDA tensor the kernel does not
+take raises.
 
 Only the window ``[0, pos]`` of the write plane is written: the positions
 past ``pos`` are unspecified, as in the JAX contract, and the decoder reads
@@ -24,12 +28,15 @@ from typing import Tuple
 
 import torch
 
-KERNEL = "permute_append"
+KERNEL = "permute_append"  # the library both kernels live in (csrc/permute_append.cu)
 KERNEL_SYMBOL = "permute_append_kernel"  # in the names of its device functions (profiler traces)
+SHARDED_KERNEL = "permute_append_sharded"
+SHARDED_KERNEL_SYMBOL = "permute_append_sharded_kernel"
 _VEC = 16  # bytes per vector load and store in the kernel
 
-# Launches of the CUDA kernel in this process (plain version not counted).
-launches = 0
+# Launches of each CUDA kernel in this process (plain versions not counted).
+launches = 0  # K2
+sharded_launches = 0  # K2′
 
 
 def supported(hd: int, itemsize: int) -> bool:
@@ -57,6 +64,14 @@ def _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> None:
         raise ValueError(f"{KERNEL}: operands on several devices: {devices}")
 
 
+def _check_beam(cache_k, beam: int) -> None:
+    bk = cache_k.shape[2] if cache_k.dim() == 5 else -1
+    if beam < 1 or bk % beam:
+        raise ValueError(
+            f"{SHARDED_KERNEL}: the shard's {bk} rows are not whole samples of beam {beam}"
+        )
+
+
 def permute_append_reference(
     cache_k: torch.Tensor, cache_v: torch.Tensor, idx: torch.Tensor,
     layer: int, pos: int, parity: int, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -70,6 +85,27 @@ def permute_append_reference(
         raw[1 - parity, layer, :, :pos] = raw[parity, layer, :, :pos].index_select(0, idx.long())
         raw[1 - parity, layer, :, pos] = new.to(planes.dtype).view(torch.uint8)
     return cache_k, cache_v
+
+
+def localize(idx_block: torch.Tensor, beam: int) -> torch.Tensor:
+    """A shard's global source rows → its local rows, ``(r // beam) * beam +
+    rem(idx, beam)``, as JAX's shard computes them (``lax.rem`` truncates,
+    as ``torch.fmod`` does). Beam selection never crosses samples, and the
+    shard holds whole samples, so the result indexes the shard's rows."""
+    r = torch.arange(idx_block.shape[0], device=idx_block.device)
+    return (r // beam) * beam + torch.fmod(idx_block.long(), beam)
+
+
+def permute_append_sharded_reference(
+    cache_k: torch.Tensor, cache_v: torch.Tensor, idx_block: torch.Tensor,
+    layer: int, pos: int, parity: int, k_new: torch.Tensor, v_new: torch.Tensor,
+    *, beam: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2′: :func:`localize`, then K2's plain version."""
+    _check_beam(cache_k, beam)
+    return permute_append_reference(
+        cache_k, cache_v, localize(idx_block, beam), layer, pos, parity, k_new, v_new
+    )
 
 
 def permute_append(
@@ -88,6 +124,42 @@ def permute_append(
     global launches
     if cache_k.device.type == "cpu":
         return permute_append_reference(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
+    _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, beam=0)
+    launches += 1
+    return cache_k, cache_v
+
+
+def permute_append_sharded(
+    cache_k: torch.Tensor,  # [2, L, BK/d, ctx, HD] this rank's rows, storage dtype
+    cache_v: torch.Tensor,
+    idx_block: torch.Tensor,  # [BK/d] int32 GLOBAL source rows of this rank's rows
+    layer: int,
+    pos: int,
+    parity: int,
+    k_new: torch.Tensor,  # [BK/d, HD]
+    v_new: torch.Tensor,
+    *,
+    beam: int,  # rows per sample; the shard holds whole samples
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on one rank of a data-parallel mesh, in place: the counterpart of
+    the per-shard body of JAX's ``permute_append_sharded``. The kernel makes
+    each global source row local itself (an index whose local row falls
+    outside the shard traps). CPU tensors take the plain version; CUDA
+    tensors launch the kernel. Returns (cache_k, cache_v)."""
+    global sharded_launches
+    if cache_k.device.type == "cpu":
+        return permute_append_sharded_reference(
+            cache_k, cache_v, idx_block, layer, pos, parity, k_new, v_new, beam=beam
+        )
+    _check_beam(cache_k, beam)
+    _launch(cache_k, cache_v, idx_block, layer, pos, parity, k_new, v_new, beam=beam)
+    sharded_launches += 1
+    return cache_k, cache_v
+
+
+def _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, *, beam: int) -> None:
+    """Check the operands of a CUDA launch and launch K2 (``beam == 0``) or
+    K2′; raises where the kernel does not take them."""
     if cache_k.device.type != "cuda":
         raise ValueError(f"{KERNEL}: no kernel for device {cache_k.device}")
     _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
@@ -106,26 +178,31 @@ def permute_append(
     for name, t in (("k_new", kn), ("v_new", vn)):
         if t.data_ptr() % _VEC:  # a view at an unaligned offset, passed through as is
             raise ValueError(f"{KERNEL}: {name} in the storage dtype must be 16-byte aligned")
-    rc = _library().permute_append(
+    lib = _library()
+    args = (
         cache_k.data_ptr(), cache_v.data_ptr(), kn.data_ptr(), vn.data_ptr(), idx.data_ptr(),
         n_layer, bk, ctx, hd * isz // _VEC, int(layer), int(pos), int(parity),
-        cache_k.device.index or 0, torch.cuda.current_stream(cache_k.device).cuda_stream,
     )
+    where = (cache_k.device.index or 0, torch.cuda.current_stream(cache_k.device).cuda_stream)
+    if beam:
+        rc = lib.permute_append_sharded(*args, int(beam), *where)
+    else:
+        rc = lib.permute_append(*args, *where)
     if rc != 0:
         raise RuntimeError(f"{KERNEL}: launch failed with cudaError {rc}")
-    launches += 1
-    return cache_k, cache_v
 
 
 def _library() -> ctypes.CDLL:
     from whisper_tpu_torch.ops.build import load_library
 
     lib = load_library(KERNEL)
-    fn = lib.permute_append
-    fn.argtypes = [
+    common = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
-    fn.restype = ctypes.c_int
+    where = [ctypes.c_int, ctypes.c_void_p]  # device, stream
+    lib.permute_append.argtypes = common + where
+    lib.permute_append_sharded.argtypes = common + [ctypes.c_int] + where  # beam
+    lib.permute_append.restype = lib.permute_append_sharded.restype = ctypes.c_int
     return lib

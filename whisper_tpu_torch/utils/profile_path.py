@@ -11,9 +11,11 @@ device-kernel time, the device busy share (kernel time / wall; kernels run
 on one stream, so their sum is the busy time), the kernel launch count, and
 the kernels that take the most device time, and the share of device time
 and the launches of each of the port's own kernels (K1 ``flash_attn_fwd``,
-K2 ``permute_append``, K4 ``permute_rows``; K3 ``gather_attend`` and K5
-``log_mel_fused``, which the engine does not run, must count 0), found in the trace by each
-module's ``KERNEL_SYMBOL``. It exits non-zero if the trace's count of an
+K2 ``permute_append``, K4 ``permute_rows``; K3 ``gather_attend``, K5
+``log_mel_fused`` and K2′ ``permute_append_sharded``, which a
+single-process engine does not run, must count 0), found in the trace by
+each kernel's symbol (its module's ``KERNEL_SYMBOL``; K2′'s
+``SHARDED_KERNEL_SYMBOL``). It exits non-zero if the trace's count of an
 own kernel differs from its wrapper's ``launches`` count over the stage.
 ``--beam``, ``--quantization``
 and ``--kv-cache-dtype`` select the beam path (its step mode is the
@@ -32,17 +34,21 @@ import time
 import numpy as np
 
 
-def _own_kernels():
+def _own_kernels() -> dict:
+    """{name: (symbol in the trace, the wrapper's launch count now)}."""
     from whisper_tpu_torch.frontend import mel_fused
     from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend
 
-    return (attention, fused_step, gather, gather_attend, mel_fused)
+    own = {m.KERNEL: (m.KERNEL_SYMBOL, m.launches)
+           for m in (attention, fused_step, gather, gather_attend, mel_fused)}
+    own[fused_step.SHARDED_KERNEL] = (fused_step.SHARDED_KERNEL_SYMBOL, fused_step.sharded_launches)
+    return own
 
 
 def _stage(torch, fn, label: str, top: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    before = {m.KERNEL: m.launches for m in _own_kernels()}
+    before = {name: n for name, (_, n) in _own_kernels().items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -57,14 +63,14 @@ def _stage(torch, fn, label: str, top: int = 8) -> dict:
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     own = {}
-    for m in _own_kernels():
-        hits = [(n, t) for name, (n, t) in by_name.items() if m.KERNEL_SYMBOL in name]
+    for kernel, (symbol, now) in _own_kernels().items():
+        hits = [(n, t) for name, (n, t) in by_name.items() if symbol in name]
         count, ms = sum(n for n, _ in hits), sum(t for _, t in hits)
-        launched = m.launches - before[m.KERNEL]
+        launched = now - before[kernel]
         if count != launched:
             sys.exit(f"profile_path: [{label}] the trace holds {count} launches of "
-                     f"{m.KERNEL} ({m.KERNEL_SYMBOL}*), its wrapper counted {launched}")
-        own[m.KERNEL] = {"count": count, "ms": ms, "share": ms / dev_ms if dev_ms else 0.0}
+                     f"{kernel} ({symbol}*), its wrapper counted {launched}")
+        own[kernel] = {"count": count, "ms": ms, "share": ms / dev_ms if dev_ms else 0.0}
     print(
         f"[{label}] wall {wall_ms:.1f} ms, device kernels {dev_ms:.1f} ms "
         f"(busy {dev_ms / wall_ms:.1%}), {len(kernels)} kernel launches"
@@ -113,7 +119,7 @@ def main() -> None:
     engine.transcribe_batch(batch)  # warm-up: library handles, allocator
 
     host, _, _ = engine._prepare_batch(batch)
-    enc, enc_out = _stage(torch, lambda: engine._encode(host), "mel+encoder")
+    enc, enc_out = _stage(torch, lambda: engine._encode(host, engine._resolve_audio_ctx(host)), "mel+encoder")
     steps_before = beam.steps
     dec, (tokens, lengths, _, _) = _stage(torch, lambda: engine._decode(enc_out), "decode")
     if args.beam > 1:  # the beam loop may stop before its longest hypothesis' end
