@@ -10,11 +10,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``whisper_tpu_torch/csrc/`` (into ``build/whisper_tpu_torch/``).
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes and a few others, with the tolerance stated (K1: 4 bf16
-   ulps; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
+   ulps, at T = 1, 100, 256, 512, 1024, 1499 and 1500, Dh = 32 and 64,
+   ``unbind`` views, and f32 at 1e-5; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
    ulps or 1e-5 in f32, and JAX's tolerances against
    ``reference_gather_attend``; K5: 2e-4 in log-mel units, also against
    ``frontend/mel.py``); times of the kernel, the plain version and the
-   library call (or the nearest composite, labelled) beside the bound.
+   library call (or the nearest composite, labelled) beside the bound;
+   K1 and ``scaled_dot_product_attention`` also at T = 256, 512, 1024 and
+   1500 at large-v3 width (batch 4, 20 heads), one line per T.
    K5's path is its entry point on the main path's batch: one launch. K2′
    (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
    a batch of 4 on 2 ranks, with global source rows.
@@ -128,6 +131,22 @@ def time_ms(fn, inner: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def host_ms_per_call(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn`` (enqueue only): ``calls`` calls made
+    while a spin kernel keeps the card busy, on the host clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # about 20 ms: the calls queue behind it
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
 def attention_bound_ms(b, t, h, dh, itemsize) -> tuple:
     """Least time for non-causal attention on [B, T, H, Dh]: the larger of
     4·B·H·T²·Dh operations over the peak rate for the dtype and the bytes of
@@ -147,26 +166,49 @@ def bf16_tolerance(ref_max: float) -> float:
 
 
 def phase_kernels(torch, attention) -> dict:
+    """K1 against its plain version at the main path's shape (the record,
+    also timed beside the plain version and ``scaled_dot_product_attention``),
+    at the encoder's ``audio_ctx`` buckets and ragged lengths (T = 1, 100,
+    256, 512, 1024, 1499 at 20 heads), at Dh = 32, on ``unbind`` views of
+    one [B, T, 3, H, Dh] projection, and in f32. Then one line per T ∈
+    {256, 512, 1024, 1500} at large-v3 width (batch 4, 20 heads): K1,
+    ``scaled_dot_product_attention`` and the bound."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
         ("large-v3 encoder", (4, 1500, 20, 64), torch.bfloat16),
         ("tiny encoder", (4, 1500, 6, 64), torch.bfloat16),
-        # The mask check: 28 of the last K/V tile's 64 keys lie past T. At
-        # T=1500 only 36 of 1536 keys are masked, too few for the tolerance
-        # to catch a kernel that gives them weight.
+        # The mask check: 28 of the last K/V tile's 128 keys lie past T (one
+        # ragged tile). At T=1500, 36 of 1536 keys are masked, too few for
+        # the tolerance to catch a kernel that gives them weight.
         ("ragged T=100", (4, 100, 20, 64), torch.bfloat16),
+        ("one key T=1", (4, 1, 20, 64), torch.bfloat16),
+        ("bucket T=256 (no mask)", (4, 256, 20, 64), torch.bfloat16),
+        ("bucket T=512 (no mask)", (4, 512, 20, 64), torch.bfloat16),
+        ("bucket T=1024 (no mask)", (4, 1024, 20, 64), torch.bfloat16),
+        ("ragged T=1499", (4, 1499, 20, 64), torch.bfloat16),
         ("dev encoder, Dh=32", (4, 1500, 2, 32), torch.bfloat16),
+        ("Dh=32, T=64", (4, 64, 4, 32), torch.bfloat16),
+        ("unbind views", (2, 300, 4, 64), "strided"),
+        ("unbind views, Dh=32", (2, 300, 4, 32), "strided"),
         ("tiny encoder f32", (2, 1500, 6, 64), torch.float32),
         ("f32 Dh=32, T=300", (2, 300, 2, 32), torch.float32),
     ]
     record = None
-    before = attention.launches
     for name, shape, dtype in cases:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        if dtype == "strided":  # q, k, v as views of one fused projection
+            b, t, h, dh = shape
+            dtype = torch.bfloat16
+            x = torch.randn((b, t, 3, h, dh), generator=gen, device="cuda").to(dtype)
+            q, k, v = x.unbind(2)
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        before = attention.launches
         out = attention.fused_self_attention(q, k, v)
         torch.cuda.synchronize()
+        if attention.launches != before + 1:
+            fail(f"K1 wrapper did not launch its kernel once at {name}")
         ref = attention.fused_self_attention_reference(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         ref_max = ref.float().abs().max().item()
@@ -188,7 +230,10 @@ def phase_kernels(torch, attention) -> dict:
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 )
             )
-            log(f"    plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms")
+            host_ms = host_ms_per_call(lambda: attention.fused_self_attention(q, k, v))
+            log(f"    plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
+                f"the wrapper's host time per call (checks, three tensor-map encodes, ctypes, "
+                f"allocation) {host_ms:.4f} ms")
             record = {
                 "name": "flash_attn_fwd", "route": "cuda",
                 "source": "whisper_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -196,9 +241,23 @@ def phase_kernels(torch, attention) -> dict:
                 "launches": None, "max_abs_err": err, "ms": kern_ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": lib_ms, "shape": list(shape), "dtype": "bfloat16",
+                "host_ms": host_ms,
             }
-    if attention.launches == before:
-        fail("K1 wrapper never launched its kernel")
+    per_t = []
+    for t in (256, 512, 1024, 1500):
+        shape = (4, t, 20, 64)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
+        lib_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        )
+        bound, bound_by = attention_bound_ms(*shape, 2)
+        tflops = 4.0 * 4 * 20 * t * t * 64 / kern_ms / 1e9
+        log(f"  K1 at T={t} {list(shape)} bf16: kernel {kern_ms:.4f} ms ({tflops:.0f} TFLOP/s), "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"kernel / library {kern_ms / lib_ms:.3f}")
+        per_t.append({"t": t, "ms": kern_ms, "library_ms": lib_ms, "bound_ms": bound})
+    record["per_t"] = per_t
     return record
 
 

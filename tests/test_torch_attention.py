@@ -8,7 +8,9 @@ scale (2^-7 relative to max|ref|), since the two frameworks round the
 weights and the output at the same places but sum in another order.
 
 The CUDA kernel itself is held against the plain version on the card by
-``chip_smoke.py`` and by ``test_torch_attention_cuda.py``.
+``chip_smoke.py`` and by ``test_torch_attention_cuda.py``. What its wrapper
+computes in Python, the TMA tensor maps of the bf16 kernel, is checked here
+on CPU tensors of the same shapes and strides.
 """
 
 import jax.numpy as jnp
@@ -93,6 +95,63 @@ def test_cuda_branch_raises_for_strided_head_dim(monkeypatch):
     x = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)[..., ::2]  # Dh 64, stride 2
     with pytest.raises(ValueError, match="contiguous"):
         ta.fused_self_attention(_OnCuda(x), _OnCuda(x), _OnCuda(x))
+
+
+# --- the TMA tensor maps of the bf16 kernel (pure Python, run here) ---------
+
+
+@pytest.mark.parametrize("b, t, h, dh", [(4, 1500, 20, 64), (2, 100, 6, 32), (1, 256, 20, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tensor_map_layout_of_contiguous_tensors(b, t, h, dh, dtype):
+    x = torch.zeros(b, t, h, dh, dtype=dtype)
+    e = x.element_size()
+    dims, strides, box = ta.tensor_map_layout(x.shape, x.stride(), e)
+    assert dims == (dh, h, t, b)  # innermost first
+    assert strides == (dh * e, h * dh * e, t * h * dh * e)  # bytes of H, T, B
+    assert box == (dh, 1, ta.BLOCK_ROWS, 1)
+
+
+@pytest.mark.parametrize("dh", [64, 32])
+def test_tensor_map_layout_of_unbind_views(dh):
+    # q, k, v as the encoder could hand them: views of one [B, T, 3, H, Dh].
+    x = torch.zeros(2, 300, 3, 4, dh, dtype=torch.bfloat16)
+    for view in x.unbind(2):
+        dims, strides, box = ta.tensor_map_layout(view.shape, view.stride(), 2)
+        assert dims == (dh, 4, 300, 2)
+        assert strides == (2 * dh, 2 * 3 * 4 * dh, 2 * 300 * 3 * 4 * dh)
+        assert box == (dh, 1, 64, 1)
+
+
+def test_layouts_as_the_c_entry_takes_them():
+    # q, k, v in turn, 11 values each (dims, byte strides, box), kept per
+    # shape and strides so that the encoder's 32 layers build them once.
+    x = torch.zeros(2, 300, 3, 4, 64, dtype=torch.bfloat16)
+    q, k, v = x.unbind(2)
+    flat = ta._layouts(tuple(q.shape), q.stride(), k.stride(), v.stride(), 2)
+    want = [n for view in (q, k, v) for part in ta.tensor_map_layout(view.shape, view.stride(), 2)
+            for n in part]
+    assert list(flat) == want and len(want) == 33
+    assert ta._layouts(tuple(q.shape), q.stride(), k.stride(), v.stride(), 2) is flat
+
+
+def test_tensor_map_layout_packs_size_one_axes():
+    # A size-1 axis's stride is never used; it gets the packed stride, a
+    # multiple of 16 bytes whatever the view says (here 8 bytes, and 0).
+    dims, strides, _ = ta.tensor_map_layout((1, 1, 1, 64), (4, 0, 4, 1), 2)
+    assert dims == (64, 1, 1, 1) and strides == (128, 128, 128)
+
+
+@pytest.mark.parametrize(
+    "shape, stride, match",
+    [
+        ((2, 8, 4, 64), (8 * 4 * 68, 4 * 68, 68, 1), "not a multiple of 16"),  # a padded head
+        ((2, 8, 4, 64), (8 * 4 * 64 + 4, 4 * 64, 64, 1), "not a multiple of 16"),  # batch
+        ((2, 8, 4, 64), (8 * 4 * 128, 4 * 128, 128, 2), "contiguous"),
+    ],
+)
+def test_tensor_map_layout_refuses_what_tma_cannot_read(shape, stride, match):
+    with pytest.raises(ValueError, match=match):
+        ta.tensor_map_layout(shape, stride, 2)
 
 
 def test_other_devices_raise_rather_than_fall_back():

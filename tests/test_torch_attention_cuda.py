@@ -8,7 +8,8 @@ the card it runs without the repo's conftest:
 
 Tolerances: bfloat16 4 ulps at the output's largest magnitude (kernel and
 plain version round the softmax weights and the output at different
-places); float32 atol 1e-5.
+places); float32 atol 1e-5. Every case also checks that the wrapper
+launched the kernel once.
 """
 
 import math
@@ -49,6 +50,23 @@ def _tolerance(ref: torch.Tensor) -> float:
     ],
 )
 def test_kernel_matches_plain_version(card, shape, dtype):
+    _check_case(card, shape, dtype)
+
+
+# The encoder's audio_ctx buckets (256, 512, 1024) and full window (1500) at
+# large-v3's 20 heads, where T is a multiple of the 128-key tile (no mask)
+# or not (1500: 92 keys in the last tile; 1499; 100: one ragged tile; 1: one
+# key, one query); and Dh = 32 (the dev dims) at one tile and at 1500.
+@pytest.mark.parametrize(
+    "shape",
+    [(2, t, 20, 64) for t in (1, 100, 256, 512, 1024, 1499, 1500)]
+    + [(2, 64, 4, 32), (2, 1500, 4, 32)],
+)
+def test_bf16_kernel_across_lengths(card, shape):
+    _check_case(card, shape, torch.bfloat16)
+
+
+def _check_case(card, shape, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(3))
     before = ta.launches
@@ -60,10 +78,14 @@ def test_kernel_matches_plain_version(card, shape, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= _tolerance(ref)
 
 
-def test_strided_inputs(card):
+@pytest.mark.parametrize("dh", [64, 32])
+def test_strided_inputs(card, dh):
     # q, k, v as views of one fused [B, T, 3, H, Dh] projection.
-    x = torch.randn(2, 300, 3, 4, 64, device=card).to(torch.bfloat16)
+    x = torch.randn(2, 300, 3, 4, dh, device=card).to(torch.bfloat16)
     q, k, v = x.unbind(2)
+    before = ta.launches
     out = ta.fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1
     ref = ta.fused_self_attention_reference(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= _tolerance(ref)

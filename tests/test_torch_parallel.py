@@ -64,10 +64,10 @@ def _mesh(data: int, index: int = 0) -> Mesh:
 
 
 def test_mesh_shape():
-    mesh = make_mesh((1, 1))
+    mesh = make_mesh((1, 1), device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.data_index == 0
     assert mesh.device == torch.device("cpu") and mesh.data_size == 1
-    assert make_mesh().shape == {"data": 1, "model": 1}  # the world's size
+    assert make_mesh(device="cpu").shape == {"data": 1, "model": 1}  # the world's size
     for n, mp in ((8, 1), (8, 2), (4, 4)):
         assert local_mesh_shape(n, mp) == jax_local_mesh_shape(n, mp)
     with pytest.raises(ValueError):
@@ -77,6 +77,17 @@ def test_mesh_shape():
 @pytest.mark.parametrize("shape", [(2, 1), (4, 2), (1, 2)])
 def test_world_size_mismatch_raises(shape):
     with pytest.raises(ValueError, match="needs .* processes, have 1"):
+        make_mesh(shape, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [None, (1, 1)])
+def test_make_mesh_defaults_to_the_card_and_raises_without_one(monkeypatch, shape):
+    # As JAX's make_mesh takes the accelerator, the port's takes the card:
+    # without one (forced here, whatever the machine has) it raises the
+    # engine's error rather than returning a CPU mesh.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
         make_mesh(shape)
 
 

@@ -59,21 +59,29 @@ def local_mesh_shape(
 def rank_device(device: Union[str, torch.device]) -> torch.device:
     """This rank's device: ``cuda:{local_rank % device_count}`` when CUDA is
     asked for (so ranks share a card when there are fewer cards than ranks
-    on the host), else ``device`` as it is."""
+    on the host), else ``device`` as it is. CUDA without a card raises
+    ``RuntimeError``, as the engine's entry points do."""
     device = torch.device(device)
     if device.type != "cuda":
         return device
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards == 0:
+        raise RuntimeError(
+            "device='cuda' was asked for but torch sees no CUDA device; "
+            "pass device='cpu' to run on the CPU"
+        )
     local_rank = int(os.environ.get("LOCAL_RANK", rank()))
-    return torch.device("cuda", local_rank % torch.cuda.device_count())
+    return torch.device("cuda", local_rank % cards)
 
 
 def make_mesh(
     shape: Optional[Tuple[int, int]] = None,
     axis_names: Tuple[str, str] = ("data", "model"),
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Mesh:
     """This rank's view of a 2-D (data, model) mesh over the world's ranks.
-    The world must have exactly data · model ranks."""
+    The world must have exactly data · model ranks. Its device is this
+    rank's card unless the caller asks for another (``device="cpu"``)."""
     if shape is None:
         shape = local_mesh_shape()
     d, m = (int(n) for n in shape)
