@@ -20,7 +20,17 @@ Phases, in order; any failure exits non-zero before the last line:
    1500 at large-v3 width (batch 4, 20 heads), one line per T.
    K5's path is its entry point on the main path's batch: one launch. K2′
    (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
-   a batch of 4 on 2 ranks, with global source rows.
+   a batch of 4 on 2 ranks, with global source rows. K2 and K2′ with new
+   rows in f32, bf16 and strided bf16, which the kernel converts itself:
+   one kernel per call (profiler), timed with bf16 rows as the engine
+   passes them, beside the launch floor (``torch.cuda._sleep(0)``) and the
+   wrapper's host time; the conversion bitwise equal to ``.to()`` over
+   every bf16 and f16 pattern and f32 edge values; K2 over pos 35, 100,
+   200 and 440 of the flagship's full 448-token context, on fp8 planes (bf16
+   rows and rows already in fp8) and on bf16 planes (bf16 rows, the
+   default config's cache).
+
+    python3 chip_smoke.py --sweep-tree DIR   # K2's sweep alone, DIR's K2
 4. Greedy main path at full width: ``create_engine(MONOLITH, EngineConfig(
    model="large-v3", max_new_tokens=64), device="cuda")`` with random
    weights from a seed; ``transcribe_batch`` of 4 utterances of different
@@ -292,12 +302,58 @@ def mel_bound(b: int, n_mels: int, filt_nnz: int) -> dict:
             "dense_ms": max(dense / PEAK_F32_FLOPS * 1e3, by_bytes)}
 
 
+def kernels_per_call(torch, fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches, from a
+    ``torch.profiler`` trace of that call alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: libraries loaded, allocator primed
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _k2_rows(torch, gen, bk, hd):
+    """New K/V rows as the engine passes them (bf16), in f32, and as a
+    column slice of a wider bf16 tensor (strided rows)."""
+    f32 = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+    wide = torch.randn((2, bk, 2 * hd), generator=gen, device="cuda").to(torch.bfloat16)
+    return {"f32": f32, "bf16": [r.to(torch.bfloat16) for r in f32],
+            "bf16 strided": [wide[0, :, 3 : 3 + hd], wide[1, :, hd - 1 : 2 * hd - 1]]}
+
+
+def _k2_contract_equal(torch, a, b, layer, pos, parity) -> bool:
+    """The write plane's window [0, pos], the read plane and the write
+    plane's other layers agree bitwise (past pos the write plane is
+    unspecified)."""
+    w = 1 - parity
+    return all(
+        torch.equal(_as_bytes(x), _as_bytes(y))
+        for x, y in ((a[w, layer, :, : pos + 1], b[w, layer, :, : pos + 1]), (a[parity], b[parity]),
+                     (a[w, :layer], b[w, :layer]), (a[w, layer + 1:], b[w, layer + 1:]))
+    )
+
+
+def k2_bound_ms(hd, isz, row_isz, n_src, bk, pos) -> float:
+    """Bytes this call needs moved, K and V: each distinct source row of the
+    window [0, pos) read once (a repeated row is served from L2), the new
+    rows read in their own dtype, the window [0, pos] of every row
+    written."""
+    return bytes_bound_ms(2 * hd * (isz * (n_src * pos + bk * (pos + 1)) + row_isz * bk))
+
+
 def phase_permute_append(torch, fused_step) -> dict:
     """K2 against its plain version, bitwise, at the beam main path's shape
     (large-v3 beam 5 batch 4: planes [2, 32, 20, 68, 1280], in fp8 and
     bf16, at pos 4, 35 and 67, both parities) and at a tiny f32 and a dev
-    fp8 shape. The record is the fp8 case at pos 35 (about the mean
-    position of a 64-token decode after a 4-token prompt)."""
+    fp8 shape, each with new rows in f32, in bf16 (as the engine passes
+    them) and as a strided bf16 view: the kernel converts them itself. The
+    record is the fp8 case at pos 35 (about the mean position of a 64-token
+    decode after a 4-token prompt), timed with bf16 rows, with f32 rows and
+    with rows already in fp8 beside it; each of its calls must be one
+    kernel in a profiler trace."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     dtypes = {"fp8": getattr(torch, FP8), "bf16": torch.bfloat16, "f32": torch.float32}
     cases = [((2, 32, 20, 68, 1280), d, pos) for d in ("fp8", "bf16") for pos in (4, 35, 67)]
@@ -312,47 +368,38 @@ def phase_permute_append(torch, fused_step) -> dict:
         planes = [
             (4 * torch.randn(shape, generator=gen, device="cuda")).to(dt) for _ in range(2)
         ]
-        new = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+        rows = _k2_rows(torch, gen, bk, hd)
         err = 0.0
-        for parity in (0, 1):
-            ck, cv = (p.clone() for p in planes)
-            rk, rv = (p.clone() for p in planes)
-            fused_step.permute_append(ck, cv, idx, layer, pos, parity, *new)
-            fused_step.permute_append_reference(rk, rv, idx, layer, pos, parity, *new)
-            torch.cuda.synchronize()
-            w = 1 - parity
-            # The written window [0, pos] of the write plane, and everything
-            # the call must leave alone: the read plane and the write
-            # plane's other layers. Past pos the write plane is unspecified.
-            for a, b in ((ck, rk), (cv, rv)):
-                win_a, win_b = a[w, layer, :, : pos + 1], b[w, layer, :, : pos + 1]
-                same = all(
-                    torch.equal(_as_bytes(x), _as_bytes(y))
-                    for x, y in ((win_a, win_b), (a[parity], b[parity]),
-                                 (a[w, :layer], b[w, :layer]), (a[w, layer + 1:], b[w, layer + 1:]))
-                )
-                if not same:
-                    fail(f"K2 differs from its plain version at {list(shape)} {dname} pos {pos} parity {parity}")
-                err = max(err, (win_a.float() - win_b.float()).abs().max().item())
-        # Bytes this run's data needs moved: each distinct source row of the
-        # window [0, pos) read once (a repeated row is served from L2), the
-        # new rows read, the window [0, pos] of every row written; K and V.
-        # The kernel is timed on new rows already in the storage dtype; the
-        # wrapper's casts of f32 rows (two more launches) are timed beside it.
+        for rname, new in rows.items():
+            for parity in (0, 1):
+                ck, cv = (p.clone() for p in planes)
+                rk, rv = (p.clone() for p in planes)
+                fused_step.permute_append(ck, cv, idx, layer, pos, parity, *new)
+                fused_step.permute_append_reference(rk, rv, idx, layer, pos, parity, *new)
+                torch.cuda.synchronize()
+                for a, b in ((ck, rk), (cv, rv)):
+                    if not _k2_contract_equal(torch, a, b, layer, pos, parity):
+                        fail(f"K2 differs from its plain version at {list(shape)} {dname} pos {pos} "
+                             f"parity {parity}, {rname} rows")
+                    w = 1 - parity
+                    err = max(err, (a[w, layer, :, : pos + 1].float() - b[w, layer, :, : pos + 1].float())
+                              .abs().max().item())
         isz = planes[0].element_size()
         n_src = int(torch.unique(idx).numel())
-        bound = bytes_bound_ms(2 * hd * isz * (n_src * pos + bk + bk * (pos + 1)))
-        stored = [n.to(dt) for n in new]
-        kern_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *stored))
-        cast_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *new))
+        new = rows["bf16"]
+        bound = k2_bound_ms(hd, isz, 2, n_src, bk, pos)
+        kern_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *new))
         log(
-            f"  K2 {list(shape)} {dname} pos {pos}: bitwise equal (both parities); "
-            f"kernel {kern_ms:.4f} ms (with the f32 rows' casts {cast_ms:.4f}), "
-            f"bound {bound:.4f} ms (bytes; {n_src} distinct of {bk} source rows)"
+            f"  K2 {list(shape)} {dname} pos {pos}: bitwise equal (both parities; f32, bf16 and "
+            f"strided bf16 rows); kernel with bf16 rows {kern_ms:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes; {n_src} distinct of {bk} source rows)"
         )
         if record is None and pos == 35:
+            f32_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *rows["f32"]))
+            stored = [n.to(dt) for n in new]
+            stored_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *stored))
             plain_ms = time_ms(
-                lambda: fused_step.permute_append_reference(ck, cv, idx, layer, pos, 0, *stored)
+                lambda: fused_step.permute_append_reference(ck, cv, idx, layer, pos, 0, *new)
             )
             idx_l = idx.long()
             srcs = [_as_bytes(p)[0, layer, :, :pos] for p in (ck, cv)]
@@ -363,15 +410,25 @@ def phase_permute_append(torch, fused_step) -> dict:
                     torch.index_select(s_, 0, idx_l, out=d_)
 
             lib_ms = time_ms(library)
+            floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+            host_ms = host_ms_per_call(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *new))
+            per_call = {r: kernels_per_call(torch, lambda: fused_step.permute_append(
+                ck, cv, idx, layer, pos, 0, *rows[r])) for r in ("bf16", "f32")}
+            for r, names in per_call.items():
+                if len(names) != 1 or fused_step.KERNEL_SYMBOL not in names[0]:
+                    fail(f"K2 with {r} rows launched {names}, expected its one kernel")
             # The same call on a permutation without duplicates: every
             # source row read from memory.
             perm = torch.randperm(bk, generator=gen, device="cuda").to(torch.int32)
-            perm_ms = time_ms(lambda: fused_step.permute_append(ck, cv, perm, layer, pos, 0, *stored))
-            perm_bound = bytes_bound_ms(2 * hd * isz * (bk * pos + bk + bk * (pos + 1)))
+            perm_ms = time_ms(lambda: fused_step.permute_append(ck, cv, perm, layer, pos, 0, *new))
+            perm_bound = k2_bound_ms(hd, isz, 2, bk, bk, pos)
             log(
-                f"    plain {plain_ms:.4f} ms, index_select of the window (gather only, no append) "
-                f"{lib_ms:.4f} ms; on a permutation without duplicates: kernel {perm_ms:.4f} ms, "
-                f"bound {perm_bound:.4f} ms"
+                f"    with f32 rows {f32_ms:.4f} ms, with rows already in fp8 {stored_ms:.4f} ms; "
+                f"one kernel per call (bf16 and f32 rows); the "
+                f"launch floor (torch.cuda._sleep(0)) {floor_ms:.4f} ms; the wrapper's host time "
+                f"per call {host_ms:.4f} ms; plain {plain_ms:.4f} ms, index_select of the window "
+                f"(gather only, no append) {lib_ms:.4f} ms; on a permutation without duplicates: "
+                f"kernel {perm_ms:.4f} ms, bound {perm_bound:.4f} ms"
             )
             record = {
                 "name": "permute_append", "route": "cuda",
@@ -380,10 +437,67 @@ def phase_permute_append(torch, fused_step) -> dict:
                 "launches": None, "max_abs_err": err, "ms": kern_ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": lib_ms, "shape": list(shape), "dtype": FP8, "pos": pos,
+                "rows": "bfloat16", "f32_rows_ms": f32_ms, "fp8_rows_ms": stored_ms,
+                "launch_floor_ms": floor_ms, "host_ms": host_ms,
+                "kernels_per_call": len(per_call["bf16"]),
                 "distinct_sources": n_src, "permutation_ms": perm_ms,
                 "permutation_bound_ms": perm_bound,
             }
     return record
+
+
+SWEEP_SHAPE = (2, 32, 20, 448, 1280)  # large-v3 beam 5 batch 4, the full 448-token text context
+SWEEP_POS = (35, 100, 200, 440)
+
+
+def k2_sweep(torch, fused_step) -> dict:
+    """K2 over the flagship's whole text context: planes [2, 32, 20, 448,
+    1280], pos 35, 100, 200 and 440, on an ``idx`` with duplicates and on a
+    permutation; fp8 planes with new rows in bf16 (as the flagship passes
+    them) and already in fp8, then bf16 planes with bf16 rows (the default
+    config's cache: the copy alone). Each point is first checked bitwise
+    against the plain version; each timed window cycles through the 32
+    layers, as a decode step does, so the planes come from memory and not
+    from L2. Works with any tree's ``ops/fused_step`` of the same signature
+    (``--sweep-tree``). Returns the wrapper's host time per call and the
+    timed points."""
+    import itertools
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fp8 = getattr(torch, FP8)
+    _, n_layer, bk, ctx, hd = SWEEP_SHAPE
+    bf16 = [torch.randn((bk, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2)]
+    dup = torch.randint(0, bk, (bk,), generator=gen, device="cuda", dtype=torch.int32)
+    dup[1] = dup[0]
+    perm = torch.randperm(bk, generator=gen, device="cuda").to(torch.int32)
+    host_ms, out = None, []
+    for pname, dt, rows in (("fp8", fp8, {"bf16": bf16, "fp8": [r.to(fp8) for r in bf16]}),
+                            ("bf16", torch.bfloat16, {"bf16": bf16})):
+        ck, cv = (torch.randint(0, 256, SWEEP_SHAPE, generator=gen, device="cuda", dtype=torch.uint8)
+                  .view(fp8).to(dt) for _ in range(2))
+        if host_ms is None:
+            host_ms = host_ms_per_call(lambda: fused_step.permute_append(ck, cv, dup, 3, SWEEP_POS[0], 0, *bf16))
+            log(f"  K2 sweep: the wrapper's host time per call (bf16 rows, pos {SWEEP_POS[0]}) {host_ms:.4f} ms")
+        for pos in SWEEP_POS:
+            for iname, idx in (("duplicates", dup), ("permutation", perm)):
+                n_src = int(torch.unique(idx).numel())
+                rk, rv = ck.clone(), cv.clone()
+                fused_step.permute_append(ck, cv, idx, 3, pos, 0, *bf16)
+                fused_step.permute_append_reference(rk, rv, idx, 3, pos, 0, *bf16)
+                torch.cuda.synchronize()
+                if not all(_k2_contract_equal(torch, a, b, 3, pos, 0) for a, b in ((ck, rk), (cv, rv))):
+                    fail(f"K2 differs from its plain version at ctx {ctx}, {pname} planes, pos {pos}, {iname}")
+                del rk, rv
+                for rname, new in rows.items():
+                    layers = itertools.cycle(range(n_layer))
+                    ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, next(layers), pos, 0, *new))
+                    bound = k2_bound_ms(hd, ck.element_size(), new[0].element_size(), n_src, bk, pos)
+                    out.append({"planes": pname, "pos": pos, "idx": iname, "distinct_sources": n_src,
+                                "rows": rname, "ms": ms, "bound_ms": bound})
+                    log(f"  K2 sweep {list(SWEEP_SHAPE)} {pname} pos {pos} {iname} ({n_src} distinct), "
+                        f"{rname} rows: {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%})")
+        del ck, cv
+    return {"host_ms": host_ms, "points": out}
 
 
 def phase_permute_append_sharded(torch, fused_step) -> dict:
@@ -391,9 +505,11 @@ def phase_permute_append_sharded(torch, fused_step) -> dict:
     data-parallel beam path (large-v3 beam 5, a batch of 4 on 2 ranks:
     planes [2, 32, 10, 68, 1280]) with rank 1's global source rows (10..19,
     each within its sample, a duplicate always), fp8 at pos 35 (the record)
-    and bf16 at pos 67, both parities, plus a tiny f32 shape. K2's count
-    must not move. Timed beside its bound, the plain version and
-    ``index_select`` of the localised K and V windows."""
+    and bf16 at pos 67, both parities, plus a tiny f32 shape, each with new
+    rows in f32, in bf16 and as a strided bf16 view. K2's count must not
+    move. The record is timed with bf16 rows (f32 beside), beside its bound,
+    the plain version and ``index_select`` of the localised K and V
+    windows, and must be one kernel per call."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = [((2, 32, 10, 68, 1280), getattr(torch, FP8), 5, 35),
              ((2, 32, 10, 68, 1280), torch.bfloat16, 5, 67),
@@ -406,44 +522,48 @@ def phase_permute_append_sharded(torch, fused_step) -> dict:
         idx = (bk + (torch.arange(bk, device="cuda") // beam) * beam + src).to(torch.int32)
         layer = n_layer // 2
         planes = [(4 * torch.randn(shape, generator=gen, device="cuda")).to(dt) for _ in range(2)]
-        new = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+        rows = _k2_rows(torch, gen, bk, hd)
         err = 0.0
         k2_before = fused_step.launches
-        for parity in (0, 1):
-            ck, cv = (p.clone() for p in planes)
-            rk, rv = (p.clone() for p in planes)
-            fused_step.permute_append_sharded(ck, cv, idx, layer, pos, parity, *new, beam=beam)
-            fused_step.permute_append_sharded_reference(rk, rv, idx, layer, pos, parity, *new, beam=beam)
-            torch.cuda.synchronize()
-            w = 1 - parity
-            for a, b in ((ck, rk), (cv, rv)):
-                win_a, win_b = a[w, layer, :, : pos + 1], b[w, layer, :, : pos + 1]
-                same = all(
-                    torch.equal(_as_bytes(x), _as_bytes(y))
-                    for x, y in ((win_a, win_b), (a[parity], b[parity]),
-                                 (a[w, :layer], b[w, :layer]), (a[w, layer + 1:], b[w, layer + 1:]))
-                )
-                if not same:
-                    fail(f"K2′ differs from its plain version at {list(shape)} {dt} pos {pos} parity {parity}")
-                err = max(err, (win_a.float() - win_b.float()).abs().max().item())
+        for rname, new in rows.items():
+            for parity in (0, 1):
+                ck, cv = (p.clone() for p in planes)
+                rk, rv = (p.clone() for p in planes)
+                fused_step.permute_append_sharded(ck, cv, idx, layer, pos, parity, *new, beam=beam)
+                fused_step.permute_append_sharded_reference(rk, rv, idx, layer, pos, parity, *new, beam=beam)
+                torch.cuda.synchronize()
+                for a, b in ((ck, rk), (cv, rv)):
+                    if not _k2_contract_equal(torch, a, b, layer, pos, parity):
+                        fail(f"K2′ differs from its plain version at {list(shape)} {dt} pos {pos} "
+                             f"parity {parity}, {rname} rows")
+                    w = 1 - parity
+                    err = max(err, (a[w, layer, :, : pos + 1].float() - b[w, layer, :, : pos + 1].float())
+                              .abs().max().item())
         if fused_step.launches != k2_before:
             fail("K2′ launched K2")
-        # Bytes this run's data needs moved, as K2's record counts them.
         local = fused_step.localize(idx, beam)
         isz = planes[0].element_size()
         n_src = int(torch.unique(local).numel())
-        bound = bytes_bound_ms(2 * hd * isz * (n_src * pos + bk + bk * (pos + 1)))
-        stored = [n.to(dt) for n in new]
+        new = rows["bf16"]
+        bound = k2_bound_ms(hd, isz, 2, n_src, bk, pos)
         kern_ms = time_ms(lambda: fused_step.permute_append_sharded(
-            ck, cv, idx, layer, pos, 0, *stored, beam=beam))
+            ck, cv, idx, layer, pos, 0, *new, beam=beam))
         log(
             f"  K2′ {list(shape)} {str(dt)[6:]} pos {pos}, global rows {bk}..{2 * bk - 1}: bitwise "
-            f"equal (both parities); kernel {kern_ms:.4f} ms, bound {bound:.4f} ms "
-            f"(bytes; {n_src} distinct of {bk} source rows)"
+            f"equal (both parities; f32, bf16 and strided bf16 rows); kernel with bf16 rows "
+            f"{kern_ms:.4f} ms, bound {bound:.4f} ms (bytes; {n_src} distinct of {bk} source rows)"
         )
         if record is None:
+            f32_ms = time_ms(lambda: fused_step.permute_append_sharded(
+                ck, cv, idx, layer, pos, 0, *rows["f32"], beam=beam))
             plain_ms = time_ms(lambda: fused_step.permute_append_sharded_reference(
-                ck, cv, idx, layer, pos, 0, *stored, beam=beam))
+                ck, cv, idx, layer, pos, 0, *new, beam=beam))
+            host_ms = host_ms_per_call(lambda: fused_step.permute_append_sharded(
+                ck, cv, idx, layer, pos, 0, *new, beam=beam))
+            names = kernels_per_call(torch, lambda: fused_step.permute_append_sharded(
+                ck, cv, idx, layer, pos, 0, *new, beam=beam))
+            if len(names) != 1 or fused_step.SHARDED_KERNEL_SYMBOL not in names[0]:
+                fail(f"K2′ with bf16 rows launched {names}, expected its one kernel")
             srcs = [_as_bytes(p)[0, layer, :, :pos] for p in (ck, cv)]
             dsts = [torch.empty_like(s, memory_format=torch.contiguous_format) for s in srcs]
 
@@ -453,9 +573,11 @@ def phase_permute_append_sharded(torch, fused_step) -> dict:
 
             lib_ms = time_ms(library)
             local32 = local.int()
-            k2_ms = time_ms(lambda: fused_step.permute_append(ck, cv, local32, layer, pos, 0, *stored))
-            log(f"    plain {plain_ms:.4f} ms, index_select of the localised windows (gather only, "
-                f"no append) {lib_ms:.4f} ms; K2 on the same rows numbered locally {k2_ms:.4f} ms")
+            k2_ms = time_ms(lambda: fused_step.permute_append(ck, cv, local32, layer, pos, 0, *new))
+            log(f"    with f32 rows {f32_ms:.4f} ms; one kernel per call; the wrapper's host time per "
+                f"call {host_ms:.4f} ms; plain {plain_ms:.4f} ms, index_select of the localised windows "
+                f"(gather only, no append) {lib_ms:.4f} ms; K2 on the same rows numbered locally "
+                f"{k2_ms:.4f} ms")
             record = {
                 "name": "permute_append_sharded", "route": "cuda",
                 "source": "whisper_tpu_torch/csrc/permute_append.cu",
@@ -464,9 +586,54 @@ def phase_permute_append_sharded(torch, fused_step) -> dict:
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": lib_ms, "library_call": "index_select x2 of the localised windows",
                 "shape": list(shape), "dtype": FP8, "pos": pos, "global_rows": [bk, 2 * bk - 1],
-                "distinct_sources": n_src, "k2_local_ms": k2_ms,
+                "rows": "bfloat16", "f32_rows_ms": f32_ms, "host_ms": host_ms,
+                "kernels_per_call": len(names), "distinct_sources": n_src, "k2_local_ms": k2_ms,
             }
     return record
+
+
+def _fp8_midpoints(torch, dtype):
+    """Midpoints of adjacent finite values of an fp8 format, and the f32
+    values one ulp either side of each."""
+    vals = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(dtype).float()
+    vals = torch.unique(vals[torch.isfinite(vals)])
+    mid = (vals[1:] + vals[:-1]) / 2
+    return torch.cat([mid, torch.nextafter(mid, mid + 1), torch.nextafter(mid, mid - 1)])
+
+
+def phase_store_cast(torch, fused_step) -> int:
+    """The conversion inside K2 (``csrc/store_cast.cuh``) against PyTorch's
+    ``.to()`` on the card, BITWISE: every one of the 65,536 bf16 and f16
+    bit patterns, and f32 at the edges (±0, ±inf, ±NaN, ±448, ±464, ±480,
+    2⁻¹⁰, 1.5·2⁻⁹, −1e-9, e5m2's overflow, subnormals, the midpoints of
+    adjacent e4m3 and e5m2 values and one ulp either side), into each
+    storage dtype (f32, bf16, f16, e4m3, e5m2). Returns the cases checked."""
+    storage = [torch.float32, torch.bfloat16, torch.float16, getattr(torch, FP8), torch.float8_e5m2]
+    patterns = torch.arange(-(2**15), 2**15, dtype=torch.int32, device="cuda").to(torch.int16)
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), -float("nan"),
+                          448.0, -448.0, 464.0, -464.0, 480.0, -480.0, 2.0**-10, 1.5 * 2.0**-9,
+                          -1e-9, 57344.0, 61440.0, -65536.0, 2.0**-17, 1e-40, -1e-40, 3e38])
+    f32 = torch.cat([edges, _fp8_midpoints(torch, storage[3]), _fp8_midpoints(torch, storage[4])])
+    f32 = torch.cat([f32, torch.zeros(-f32.numel() % 64)]).view(-1, 64).cuda()
+    sources = {"bf16 patterns": patterns.view(torch.bfloat16).view(64, 1024),
+               "f16 patterns": patterns.view(torch.float16).view(64, 1024), "f32 edges": f32}
+    n = 0
+    for sname, rows in sources.items():
+        bk, hd = rows.shape
+        idx = torch.arange(bk, dtype=torch.int32, device="cuda")
+        for dt in storage:
+            planes = [torch.zeros((2, 1, bk, 2, hd), device="cuda").to(dt) for _ in range(2)]
+            fused_step.permute_append(*planes, idx, 0, 1, 0, rows, rows)
+            want = _as_bytes(rows.to(dt))
+            for p in planes:
+                got = _as_bytes(p[1, 0, :, 1])
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    fail(f"K2's conversion of {sname} into {dt} differs from .to() in {bad} bytes")
+            n += 1
+    log(f"  K2's in-kernel conversion: bitwise equal to .to() in all {n} cases (every bf16 and f16 "
+        f"pattern, {f32.numel()} f32 edge values, into f32, bf16, f16, e4m3 and e5m2)")
+    return n
 
 
 def phase_permute_rows(torch, gather) -> dict:
@@ -1151,7 +1318,26 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
 
 
+def sweep_tree(tree: str) -> None:
+    """``--sweep-tree DIR``: only K2's sweep (:func:`k2_sweep`), with the
+    ``whisper_tpu_torch`` of the checkout at DIR (its kernel built there),
+    so that two trees' K2 compare on one card; the last line is the JSON
+    list of the sweep's records."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    from whisper_tpu_torch.ops import build, fused_step
+
+    build.build([fused_step.KERNEL])
+    log(f"K2 sweep of {os.path.dirname(fused_step.__file__)}; {card_line()}")
+    print(json.dumps(k2_sweep(torch, fused_step)))
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--sweep-tree"]:
+        return sweep_tree(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -1188,6 +1374,8 @@ def main() -> None:
         phase_permute_rows(torch, gather),
     )
     k2s = phase_permute_append_sharded(torch, fused_step)
+    k2["cast_cases"] = phase_store_cast(torch, fused_step)
+    k2["sweep"] = k2_sweep(torch, fused_step)
     k3 = phase_gather_attend(torch, gather_attend, fused_step)
     k5 = phase_mel_fused(torch, mel_fused)
 

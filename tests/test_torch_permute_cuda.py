@@ -107,9 +107,9 @@ def test_refusals(card):
     with pytest.raises(ValueError):
         tf.permute_append(planes, planes.clone(), idx, 0, 1, 0, new, new)
     planes = torch.zeros(2, 1, 2, 4, 8, device=card)
-    unaligned = torch.zeros(2 * 8 + 1, device=card)[1:].view(2, 8)
-    with pytest.raises(ValueError):  # new rows in the storage dtype at a 4-byte offset
-        tf.permute_append(planes, planes.clone(), idx, 0, 1, 0, unaligned, unaligned)
+    f64 = torch.zeros(2, 8, device=card, dtype=torch.float64)
+    with pytest.raises(TypeError):  # new rows in a dtype the kernel does not convert
+        tf.permute_append(planes, planes.clone(), idx, 0, 1, 0, f64, f64)
     x = torch.zeros(1, 2, 8, device=card)
     with pytest.raises(TypeError):
         tg.permute_rows(x, idx.long())

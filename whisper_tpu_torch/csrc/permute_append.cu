@@ -3,17 +3,20 @@
 //
 // K2 replaces: whisper_tpu/ops/fused_step.py:628 `permute_append` (the
 // Pallas grouped-DMA kernel `_dma_kernel`, :532, plus the append by
-// dynamic-update-slice, :720-733). For one decoder layer, for K and V:
+// dynamic-update-slice of the rows cast to the storage dtype, :720-733).
+// For one decoder layer, for K and V:
 //
 //   plane[1-parity][layer][r][0:pos] = plane[parity][layer][idx[r]][0:pos]
-//   plane[1-parity][layer][r][pos]   = new_rows[r]
+//   plane[1-parity][layer][r][pos]   = new_rows[r].to(storage dtype)
 //
-// on caches [2, L, BK, ctx, HD] (HD = H*Dh) in the storage dtype, as raw
-// bytes. The wrapper (whisper_tpu_torch/ops/fused_step.py) casts the new
-// rows to the storage dtype first, so the kernel converts nothing. Only the
-// window [0, pos] of the write plane is defined afterwards (the JAX kernel
-// copies whole rows; its contract leaves positions past pos unspecified
-// too, and every reader reads [0, pos] only).
+// on caches [2, L, BK, ctx, HD] (HD = H*Dh) in the storage dtype. The
+// window is moved as raw bytes. The new rows come as the caller has them
+// (f32, bf16 or f16, any row and element strides, or already in the
+// storage dtype) and are converted as they are stored, bitwise as
+// PyTorch's `.to()` (store_cast.cuh), so one launch does the whole layer.
+// Only the window [0, pos] of the write plane is defined afterwards (the
+// JAX kernel copies whole rows; its contract leaves positions past pos
+// unspecified too, and every reader reads [0, pos] only).
 //
 // K2′ replaces: whisper_tpu/ops/fused_step.py:737 `permute_append_sharded`
 // (shard_map over K2's kernel; the per-shard body :777-784). On a data
@@ -25,25 +28,34 @@
 //   src = (r / beam) * beam + idx[r] % beam
 //
 // the same integer operation as JAX's `(r//K)*K + rem(idx, K)` (C's % and
-// lax.rem both truncate), done in the block that loads the index. The copy
-// is K2's, byte for byte.
+// lax.rem both truncate), done in the block that loads the index.
 //
-// Bound: bytes, 2 (K and V) x BK x (2*pos + 1) x HD x itemsize: the window
-// read once, the window and the new row written once (fewer reads where
-// rows repeat: a repeated source row is served from L2). At large-v3 beam
-// 5 batch 4 in fp8 (BK = 20, HD = 1280) and pos = 36 that is 3.7 MB, about
-// 1.1 us at 3.35 TB/s; a rank of a 2-way mesh moves half of it. One launch
-// per layer per decode step, so launch latency weighs as much as the copy.
+// Bound: bytes, 2 (K and V) x HD x (n_src * pos * itemsize + BK * (pos + 1)
+// * itemsize + BK * row itemsize): each distinct source row's window read
+// once (a repeated row is served from L2), every destination window and
+// new row written once, the new rows read once. At large-v3 beam 5 batch 4
+// in fp8 (BK = 20, HD = 1280) that is about 3 MB at pos 35, under a
+// microsecond at 3.35 TB/s, so one launch per layer and step is what
+// costs; at pos 440, near the end of the 448-token text context, about
+// 37 MB, 11 us.
 //
-// Design: grid (chunks of the window, BK destination rows, 2 for K and V);
-// each block copies one 8 KB chunk of one destination row with 16-byte
-// vectors (row_copy.cuh). A block reads its own source index (K2′:
-// localises it first); an index outside [0, BK) traps, which surfaces as a
-// CUDA error at the next synchronising call, as PyTorch's own device-side
-// index checks do (a host-side check would cost a synchronisation per
-// launch). K2 and K2′ are two __global__ functions over one body, so a
-// profiler trace tells them apart. Not yet used: cp.async or TMA bulk
-// copies, and folding the per-layer launches of a step into one graph.
+// Design: grid (chunks of the window + 1, BK destination rows, 2 for K and
+// V). Each block but the last along x copies one 8 KB chunk of a
+// destination row's window [0, pos) with 16-byte vectors, the body K4
+// shares (row_copy.cuh); the last one stores the new row at pos,
+// converting it, so the append neither waits for a copy nor holds one up.
+// Hopper's 1-D bulk copies (global -> shared -> global on mbarriers, 8-32
+// KB chunks sized to the card) and a body with four vectors in flight per
+// thread were both built and timed over pos 35-440 of the 448-token
+// context: neither beat this body on the copy alone (PERF.md §6). The
+// params are read with constant indices only: an index from blockIdx puts
+// the whole struct on every thread's stack, which made the kernel 1.6-2.7x
+// slower on the H100. A block reads its own source index (K2′: localises
+// it first); an index outside [0, BK) traps, which surfaces as a CUDA
+// error at the next synchronising call, as PyTorch's own device-side index
+// checks do (a host-side check would cost a synchronisation per launch).
+// K2 and K2′ are two __global__ functions over one body, so a profiler
+// trace tells them apart.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (whisper_tpu_torch/ops/build.py).
@@ -52,83 +64,94 @@
 #include <stdint.h>
 
 #include "row_copy.cuh"
+#include "store_cast.cuh"
 
 namespace {
 
-struct Planes {
-  uint4* ck;
-  uint4* cv;
-  const uint4* k_new;
-  const uint4* v_new;
-  int n_layer, bk, ctx, row_vecs, layer, pos, parity;
+struct Args {
+  uint8_t* planes[2];        // K, V: [2, L, BK, ctx, HD] storage dtype
+  const uint8_t* rows[2];    // new K, V rows
+  int64_t row_stride[2];     // bytes between new rows
+  int64_t elem_stride[2];    // elements between a new row's elements
+  int n_layer, bk, ctx, hd, row_bytes, layer, pos, parity, row_dtype, storage_dtype;
+  bool e4m3_saturates;       // the installed PyTorch's e4m3 overflow rule (store_cast.cuh)
 };
 
-// One chunk of destination row blockIdx.y of K (blockIdx.z == 0) or V,
-// from local source row `src`.
-__device__ __forceinline__ void permute_append_chunk(const Planes& p, int src) {
+// Block (chunk blockIdx.x, destination row blockIdx.y, K or V blockIdx.z)
+// with local source row `src`.
+__device__ __forceinline__ void permute_append_block(const Args& a, int src) {
+  if (src < 0 || src >= a.bk) __trap();
   const int r = blockIdx.y;
-  const bool is_v = blockIdx.z != 0;
-  if (src < 0 || src >= p.bk) __trap();
-  uint4* planes = is_v ? p.cv : p.ck;
-  const int64_t cache_row = (int64_t)p.ctx * p.row_vecs;  // vectors per [ctx, HD] row
-  const uint4* src_row =
-      planes + (((int64_t)p.parity * p.n_layer + p.layer) * p.bk + src) * cache_row;
-  uint4* dst_row =
-      planes + (((int64_t)(1 - p.parity) * p.n_layer + p.layer) * p.bk + r) * cache_row;
-  const uint4* fresh = (is_v ? p.v_new : p.k_new) + (int64_t)r * p.row_vecs;
-  const int64_t old_vecs = (int64_t)p.pos * p.row_vecs;
-  row_copy::copy_chunk(src_row, fresh, old_vecs, dst_row,
-                       (int64_t)blockIdx.x * row_copy::kChunkVecs, old_vecs + p.row_vecs);
+  // K or V by constant indices: an index from blockIdx would put the whole
+  // parameter struct on the stack of every thread.
+  const bool v = blockIdx.z != 0;
+  uint8_t* plane = v ? a.planes[1] : a.planes[0];
+  const int64_t plane_row = (int64_t)a.ctx * a.row_bytes;
+  uint8_t* dst = plane + (((int64_t)(1 - a.parity) * a.n_layer + a.layer) * a.bk + r) * plane_row;
+  if (blockIdx.x + 1 < gridDim.x) {  // a chunk of the window [0, pos)
+    const uint8_t* from = plane + (((int64_t)a.parity * a.n_layer + a.layer) * a.bk + src) * plane_row;
+    row_copy::copy_chunk(reinterpret_cast<const uint4*>(from), reinterpret_cast<uint4*>(dst),
+                         (int64_t)blockIdx.x * row_copy::kChunkVecs, (int64_t)a.pos * a.row_bytes / 16);
+    return;
+  }
+  const store_cast::Row row{
+      v ? a.rows[1] + r * a.row_stride[1] : a.rows[0] + r * a.row_stride[0],
+      v ? a.elem_stride[1] : a.elem_stride[0], dst + (int64_t)a.pos * a.row_bytes, a.hd,
+      (int)threadIdx.x, row_copy::kThreads, a.e4m3_saturates};
+  store_cast::store_row(a.row_dtype, a.storage_dtype, row);
 }
 
 // K2: idx holds local source rows.
 __global__ void __launch_bounds__(row_copy::kThreads)
-    permute_append_kernel(Planes p, const int* __restrict__ idx) {
-  permute_append_chunk(p, idx[blockIdx.y]);
+    permute_append_kernel(Args a, const int* __restrict__ idx) {
+  permute_append_block(a, idx[blockIdx.y]);
 }
 
 // K2′: idx holds global source rows, made local here.
 __global__ void __launch_bounds__(row_copy::kThreads)
-    permute_append_sharded_kernel(Planes p, const int* __restrict__ idx, int beam) {
+    permute_append_sharded_kernel(Args a, const int* __restrict__ idx, int beam) {
   const int r = blockIdx.y;
-  permute_append_chunk(p, (r / beam) * beam + idx[r] % beam);
-}
-
-// beam == 0: K2; beam > 0: K2′ with samples of `beam` rows.
-int launch(void* ck, void* cv, const void* k_new, const void* v_new, const int* idx,
-           int n_layer, int bk, int ctx, int row_vecs, int layer, int pos, int parity,
-           int beam, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Planes p{static_cast<uint4*>(ck), static_cast<uint4*>(cv),
-                 static_cast<const uint4*>(k_new), static_cast<const uint4*>(v_new),
-                 n_layer, bk, ctx, row_vecs, layer, pos, parity};
-  const int64_t n_chunks = row_copy::chunks((int64_t)(pos + 1) * row_vecs);
-  const dim3 grid((unsigned)n_chunks, (unsigned)bk, 2);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beam == 0) {
-    permute_append_kernel<<<grid, row_copy::kThreads, 0, s>>>(p, idx);
-  } else {
-    permute_append_sharded_kernel<<<grid, row_copy::kThreads, 0, s>>>(p, idx, beam);
-  }
-  return (int)cudaGetLastError();
+  permute_append_block(a, (r / beam) * beam + idx[r] % beam);
 }
 
 }  // namespace
 
-// row_vecs = HD * itemsize / 16. Each returns the cudaError of the launch.
+// Row strides in bytes, element strides in elements of the row dtype;
+// dtype codes and e4m3_saturates as store_cast.cuh. beam == 0 is K2, beam
+// > 0 K2′ (bk is then the rank's row count, a multiple of beam; the
+// wrapper checks). Returns the cudaError of the launch.
 extern "C" int permute_append(void* ck, void* cv, const void* k_new, const void* v_new,
-                              const int* idx, int n_layer, int bk, int ctx, int row_vecs,
-                              int layer, int pos, int parity, int device, void* stream) {
-  return launch(ck, cv, k_new, v_new, idx, n_layer, bk, ctx, row_vecs, layer, pos, parity, 0,
-                device, stream);
-}
-
-// bk is this rank's row count, a multiple of beam > 0 (the wrapper checks).
-extern "C" int permute_append_sharded(void* ck, void* cv, const void* k_new, const void* v_new,
-                                      const int* idx, int n_layer, int bk, int ctx,
-                                      int row_vecs, int layer, int pos, int parity, int beam,
-                                      int device, void* stream) {
-  return launch(ck, cv, k_new, v_new, idx, n_layer, bk, ctx, row_vecs, layer, pos, parity,
-                beam, device, stream);
+                              int64_t k_row_stride, int64_t k_elem_stride, int64_t v_row_stride,
+                              int64_t v_elem_stride, int row_dtype, int storage_dtype,
+                              int e4m3_saturates, const int* idx, int n_layer, int bk,
+                              int ctx, int hd, int itemsize, int layer, int pos, int parity,
+                              int beam, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  a.planes[0] = static_cast<uint8_t*>(ck);
+  a.planes[1] = static_cast<uint8_t*>(cv);
+  a.rows[0] = static_cast<const uint8_t*>(k_new);
+  a.rows[1] = static_cast<const uint8_t*>(v_new);
+  a.row_stride[0] = k_row_stride;
+  a.elem_stride[0] = k_elem_stride;
+  a.row_stride[1] = v_row_stride;
+  a.elem_stride[1] = v_elem_stride;
+  a.n_layer = n_layer;
+  a.bk = bk;
+  a.ctx = ctx;
+  a.hd = hd;
+  a.row_bytes = hd * itemsize;
+  a.layer = layer;
+  a.pos = pos;
+  a.parity = parity;
+  a.row_dtype = row_dtype;
+  a.storage_dtype = storage_dtype;
+  a.e4m3_saturates = e4m3_saturates != 0;
+  const int64_t chunks = row_copy::chunks((int64_t)pos * a.row_bytes / 16);
+  const dim3 grid((unsigned)(chunks + 1), (unsigned)bk, 2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beam == 0) permute_append_kernel<<<grid, row_copy::kThreads, 0, s>>>(a, idx);
+  else permute_append_sharded_kernel<<<grid, row_copy::kThreads, 0, s>>>(a, idx, beam);
+  return (int)cudaGetLastError();
 }

@@ -41,8 +41,7 @@ __global__ void __launch_bounds__(row_copy::kThreads)
   if (src < 0 || src >= n_rows) __trap();
   const uint4* src_row = x + l * x_stride0 + src * x_stride1;
   uint4* dst_row = out + l * o_stride0 + n * o_stride1;
-  row_copy::copy_chunk(src_row, src_row, row_vecs, dst_row,
-                       (int64_t)blockIdx.x * row_copy::kChunkVecs, row_vecs);
+  row_copy::copy_chunk(src_row, dst_row, (int64_t)blockIdx.x * row_copy::kChunkVecs, row_vecs);
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
-// Gather core shared by K2 (permute_append.cu) and K4 (permute_rows.cu).
+// Gather core shared by K2's window (permute_append.cu) and K4
+// (permute_rows.cu).
 //
-// Both kernels copy whole cache rows, selected by an index, as raw bytes:
-// one block moves one chunk of one destination row with 16-byte vector
-// loads and stores. A row is a run of contiguous 16-byte vectors; the
-// wrappers check the alignment and raise where it does not hold. Nothing
-// is converted, so every storage dtype (f32, bf16, fp8) moves alike.
+// Both kernels copy cache rows, selected by an index, as raw bytes: one
+// block moves one chunk of one destination row with 16-byte vector loads
+// and stores. A row is a run of contiguous 16-byte vectors; the wrappers
+// check the alignment and raise where it does not hold. Nothing is
+// converted, so every storage dtype (f32, bf16, fp8) moves alike.
 //
 // Bound: bytes. A permutation computes nothing: each byte of the window is
 // read once and written once, so the least time is the window's bytes,
@@ -27,19 +28,15 @@ constexpr int kChunkVecs = kThreads * kUnroll;  // 8 KB per block
 // Chunks needed to cover `n_vecs` vectors.
 inline int64_t chunks(int64_t n_vecs) { return (n_vecs + kChunkVecs - 1) / kChunkVecs; }
 
-// Copy the vectors [v0, v0 + kChunkVecs) ∩ [0, n) of a destination row.
-// Vector v comes from src_a[v] when v < split, else from src_b[v - split]:
-// K2 uses the second source for the appended position, K4 passes
-// split == n. All loads are issued before the first store.
-__device__ __forceinline__ void copy_chunk(const uint4* __restrict__ src_a,
-                                           const uint4* __restrict__ src_b,
-                                           int64_t split, uint4* __restrict__ dst,
+// Copy the vectors [v0, v0 + kChunkVecs) ∩ [0, n) of a row. All loads are
+// issued before the first store.
+__device__ __forceinline__ void copy_chunk(const uint4* __restrict__ src, uint4* __restrict__ dst,
                                            int64_t v0, int64_t n) {
   uint4 buf[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const int64_t v = v0 + threadIdx.x + (int64_t)u * kThreads;
-    if (v < n) buf[u] = v < split ? src_a[v] : src_b[v - split];
+    if (v < n) buf[u] = src[v];
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {

@@ -7,13 +7,16 @@ Counterpart of ``permute_append`` and ``permute_append_sharded`` in
 plane pair ``[2, L, BK, ctx, HD]`` (HD = H·Dh) in its storage dtype; one
 call, for one layer, makes the write plane ``1 - parity`` the read plane
 ``parity`` gathered by ``idx`` (the beam permutation chosen at the
-previous step) with this step's new K/V rows at ``pos``. K2′ is K2 on a
-rank of a data-parallel mesh: the planes hold the rank's rows, ``idx`` their
-global source rows, made local in the kernel. A CUDA tensor runs the
-hand-written kernels of ``csrc/permute_append.cu``; a CPU tensor runs
-:func:`permute_append_reference` or :func:`permute_append_sharded_reference`,
-the plain versions. There is no fallback: a CUDA tensor the kernel does not
-take raises.
+previous step) with this step's new K/V rows at ``pos``, cast to the
+storage dtype. K2′ is K2 on a rank of a data-parallel mesh: the planes hold
+the rank's rows, ``idx`` their global source rows, made local in the
+kernel. A CUDA tensor runs the hand-written kernels of
+``csrc/permute_append.cu``, one launch per call: the kernel converts the
+new rows itself, bitwise as ``.to()`` (``csrc/store_cast.cuh``), from
+the pairs of dtypes in :data:`CAST_PAIRS` and at any strides. A CPU tensor
+runs :func:`permute_append_reference` or
+:func:`permute_append_sharded_reference`, the plain versions. There is no
+fallback: a CUDA tensor the kernel does not take raises.
 
 Only the window ``[0, pos]`` of the write plane is written: the positions
 past ``pos`` are unspecified, as in the JAX contract, and the decoder reads
@@ -24,6 +27,7 @@ in place and returned.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -33,6 +37,18 @@ KERNEL_SYMBOL = "permute_append_kernel"  # in the names of its device functions 
 SHARDED_KERNEL = "permute_append_sharded"
 SHARDED_KERNEL_SYMBOL = "permute_append_sharded_kernel"
 _VEC = 16  # bytes per vector load and store in the kernel
+
+# Dtype codes of csrc/store_cast.cuh: the storage dtypes the kernel writes.
+DTYPE_CODES = {
+    torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+    torch.float8_e4m3fn: 3, torch.float8_e5m2: 4,
+}
+ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # converted in the kernel
+# (new rows' dtype, storage dtype) pairs the CUDA kernel takes: a float row
+# into any storage dtype, or a row already in the storage dtype (raw bytes).
+CAST_PAIRS = frozenset(
+    {(r, s) for s in DTYPE_CODES for r in ROW_DTYPES} | {(s, s) for s in DTYPE_CODES}
+)
 
 # Launches of each CUDA kernel in this process (plain versions not counted).
 launches = 0  # K2
@@ -59,9 +75,9 @@ def _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> None:
             raise ValueError(f"{KERNEL}: {name} must be [{bk}, {hd}], got {tuple(t.shape)}")
     if not (0 <= layer < n_layer and 0 <= pos < ctx and parity in (0, 1)):
         raise ValueError(f"{KERNEL}: layer {layer}, pos {pos}, parity {parity} out of range")
-    devices = {t.device for t in (cache_k, cache_v, idx, k_new, v_new)}
-    if len(devices) != 1:
-        raise ValueError(f"{KERNEL}: operands on several devices: {devices}")
+    for t in (cache_v, idx, k_new, v_new):
+        if t.device != cache_k.device:
+            raise ValueError(f"{KERNEL}: operands on several devices: {cache_k.device}, {t.device}")
 
 
 def _check_beam(cache_k, beam: int) -> None:
@@ -115,12 +131,12 @@ def permute_append(
     layer: int,
     pos: int,  # the new rows land at this position
     parity: int,  # read plane; the write plane is 1 - parity
-    k_new: torch.Tensor,  # [BK, HD] new rows, any float dtype
+    k_new: torch.Tensor,  # [BK, HD] new rows, any strides; on CUDA a pair of CAST_PAIRS
     v_new: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the pending beam permutation and append, in place. CPU tensors
     take the plain version; CUDA tensors launch the kernel (one launch
-    covers K and V). Returns (cache_k, cache_v)."""
+    covers K and V and the new rows' cast). Returns (cache_k, cache_v)."""
     global launches
     if cache_k.device.type == "cpu":
         return permute_append_reference(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
@@ -157,11 +173,11 @@ def permute_append_sharded(
     return cache_k, cache_v
 
 
-def _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, *, beam: int) -> None:
-    """Check the operands of a CUDA launch and launch K2 (``beam == 0``) or
-    K2′; raises where the kernel does not take them."""
-    if cache_k.device.type != "cuda":
-        raise ValueError(f"{KERNEL}: no kernel for device {cache_k.device}")
+def _kernel_args(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> tuple:
+    """Check the operands of a CUDA launch and return the C entry's
+    arguments up to ``parity``; raises where the kernel does not take them.
+    The new rows go as they are: pointer, row stride in bytes, element
+    stride, dtype code."""
     _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
     _, n_layer, bk, ctx, hd = cache_k.shape
     isz = cache_k.element_size()
@@ -172,37 +188,57 @@ def _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, *, beam: in
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         if not t.is_contiguous() or t.data_ptr() % _VEC:
             raise ValueError(f"{KERNEL}: {name} must be contiguous and 16-byte aligned")
-    # The kernel moves bytes only: the new rows go to the storage dtype here.
-    kn = k_new.to(cache_k.dtype).contiguous()
-    vn = v_new.to(cache_v.dtype).contiguous()
-    for name, t in (("k_new", kn), ("v_new", vn)):
-        if t.data_ptr() % _VEC:  # a view at an unaligned offset, passed through as is
-            raise ValueError(f"{KERNEL}: {name} in the storage dtype must be 16-byte aligned")
-    lib = _library()
-    args = (
-        cache_k.data_ptr(), cache_v.data_ptr(), kn.data_ptr(), vn.data_ptr(), idx.data_ptr(),
-        n_layer, bk, ctx, hd * isz // _VEC, int(layer), int(pos), int(parity),
+    if v_new.dtype != k_new.dtype or (k_new.dtype, cache_k.dtype) not in CAST_PAIRS:
+        raise TypeError(
+            f"{KERNEL}: no conversion of {k_new.dtype} / {v_new.dtype} rows into "
+            f"{cache_k.dtype} planes on CUDA"
+        )
+    rsz = k_new.element_size()
+    return (
+        cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_new.stride(0) * rsz, k_new.stride(1), v_new.stride(0) * rsz, v_new.stride(1),
+        DTYPE_CODES[k_new.dtype], DTYPE_CODES[cache_k.dtype], int(e4m3_saturates()),
+        idx.data_ptr(), n_layer, bk, ctx, hd, isz, int(layer), int(pos), int(parity),
     )
-    where = (cache_k.device.index or 0, torch.cuda.current_stream(cache_k.device).cuda_stream)
-    if beam:
-        rc = lib.permute_append_sharded(*args, int(beam), *where)
-    else:
-        rc = lib.permute_append(*args, *where)
+
+
+@functools.lru_cache(maxsize=None)
+def e4m3_saturates() -> bool:
+    """The installed PyTorch's rule for ``float8_e4m3fn`` overflow, which
+    the kernel follows to store ``.to()``'s bytes: True where inf and
+    values past ±448 go to ±448 (later releases), False where they go to
+    NaN (up to 2.11). Read from one cast of 480 on the CPU, which runs the
+    same c10 conversion as the CUDA cast."""
+    return torch.tensor([480.0]).to(torch.float8_e4m3fn).view(torch.uint8).item() == 0x7E
+
+
+def _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, *, beam: int) -> None:
+    """Launch K2 (``beam == 0``) or K2′ on CUDA operands; raises where the
+    kernel does not take them."""
+    if cache_k.device.type != "cuda":
+        raise ValueError(f"{KERNEL}: no kernel for device {cache_k.device}")
+    args = _kernel_args(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
+    rc = _library().permute_append(
+        *args, int(beam), cache_k.device.index or 0,
+        torch.cuda.current_stream(cache_k.device).cuda_stream,
+    )
     if rc != 0:
         raise RuntimeError(f"{KERNEL}: launch failed with cudaError {rc}")
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The kernel library with its entry's argument types, bound once."""
     from whisper_tpu_torch.ops.build import load_library
 
     lib = load_library(KERNEL)
-    common = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ]
-    where = [ctypes.c_int, ctypes.c_void_p]  # device, stream
-    lib.permute_append.argtypes = common + where
-    lib.permute_append_sharded.argtypes = common + [ctypes.c_int] + where  # beam
-    lib.permute_append.restype = lib.permute_append_sharded.restype = ctypes.c_int
+    lib.permute_append.argtypes = (
+        [ctypes.c_void_p] * 4  # planes K, V; new rows K, V
+        + [ctypes.c_int64] * 4  # row and element strides of the new rows
+        + [ctypes.c_int] * 3  # row dtype, storage dtype, e4m3_saturates
+        + [ctypes.c_void_p]  # idx
+        + [ctypes.c_int] * 10  # n_layer, bk, ctx, hd, itemsize, layer, pos, parity, beam, device
+        + [ctypes.c_void_p]  # stream
+    )
+    lib.permute_append.restype = ctypes.c_int
     return lib
