@@ -13,9 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
    ulps, at T = 1, 100, 256, 512, 1024, 1499 and 1500, Dh = 32 and 64,
    ``unbind`` views, and f32 at 1e-5; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
    ulps or 1e-5 in f32, and JAX's tolerances against
-   ``reference_gather_attend``; K5: 2e-4 in log-mel units, also against
-   ``frontend/mel.py``); times of the kernel, the plain version and the
-   library call (or the nearest composite, labelled) beside the bound;
+   ``reference_gather_attend``, with f32 and bf16 new rows, which the
+   kernel converts itself: one kernel per call (profiler), timed with bf16
+   rows as ``utils/probe_fused.py`` passes them, at pos 4 (its floor) and
+   beside K2 on the same call; K5: 2e-4 in log-mel units, also against
+   ``frontend/mel.py``, its rate on its own operation count); times of
+   the kernel, the plain version and the library call (or the nearest
+   composite, labelled) beside the bound;
    K1 and ``scaled_dot_product_attention`` also at T = 256, 512, 1024 and
    1500 at large-v3 width (batch 4, 20 heads), one line per T.
    K5's path is its entry point on the main path's batch: one launch. K2′
@@ -28,9 +32,10 @@ Phases, in order; any failure exits non-zero before the last line:
    every bf16 and f16 pattern and f32 edge values; K2 over pos 35, 100,
    200 and 440 of the flagship's full 448-token context, on fp8 planes (bf16
    rows and rows already in fp8) and on bf16 planes (bf16 rows, the
-   default config's cache).
+   default config's cache); K3 over the same points beside K2, checked
+   against its plain version at each.
 
-    python3 chip_smoke.py --sweep-tree DIR   # K2's sweep alone, DIR's K2
+    python3 chip_smoke.py --sweep-tree DIR   # the K2 and K3 sweeps and K5's times alone, DIR's kernels
 4. Greedy main path at full width: ``create_engine(MONOLITH, EngineConfig(
    model="large-v3", max_new_tokens=64), device="cuda")`` with random
    weights from a seed; ``transcribe_batch`` of 4 utterances of different
@@ -288,18 +293,14 @@ def mel_bound(b: int, n_mels: int, filt_nnz: int) -> dict:
     operations the function needs per frame over the f32 rate: the window
     (400), a real FFT of 400 points (2.5·N·log2 N, half a complex FFT's
     5·N·log2 N), the power (3 per bin), the filterbank's non-zeros (2 each)
-    and the log (1 per mel). ``dense_*`` is the same for the dense DFT the
-    kernel computes (2·400·402 + 2·201·n_mels per frame): the rate of its
-    algorithm, not a bound on the function."""
+    and the log (1 per mel)."""
     frames = b * 3000
     n = 400
     flops = frames * (n + 2.5 * n * np.log2(n) + 3 * 201 + 2 * filt_nnz + n_mels)
-    dense = frames * (2 * n * 402 + 2 * 201 * n_mels)
     by_ops = flops / PEAK_F32_FLOPS * 1e3
     by_bytes = bytes_bound_ms(b * (480_000 + n_mels * 3000) * 4)
     bound, by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-    return {"ms": bound, "by": by, "gflop": float(flops) / 1e9, "dense_gflop": dense / 1e9,
-            "dense_ms": max(dense / PEAK_F32_FLOPS * 1e3, by_bytes)}
+    return {"ms": bound, "by": by, "gflop": float(flops) / 1e9}
 
 
 def kernels_per_call(torch, fn) -> list:
@@ -497,6 +498,72 @@ def k2_sweep(torch, fused_step) -> dict:
                     log(f"  K2 sweep {list(SWEEP_SHAPE)} {pname} pos {pos} {iname} ({n_src} distinct), "
                         f"{rname} rows: {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%})")
         del ck, cv
+    return {"host_ms": host_ms, "points": out}
+
+
+def k3_bound_ms(hd, isz, row_isz, n_src, bk, pos, q_isz, q_dt) -> float:
+    """Least time of one K3 call: K2's bytes (:func:`k2_bound_ms`) plus q
+    read and attn written, or 4·BK·pos·HD operations (scores and values)
+    at the query dtype's peak rate, whichever is larger (the bytes, at
+    every shape this script times)."""
+    import torch
+
+    peak = PEAK_BF16_FLOPS if q_dt == torch.bfloat16 else PEAK_F32_FLOPS
+    by_ops = 4.0 * bk * pos * hd / peak * 1e3
+    by_bytes = k2_bound_ms(hd, isz, row_isz, n_src, bk, pos) + bytes_bound_ms(2 * bk * hd * q_isz)
+    return max(by_ops, by_bytes)
+
+
+def k3_sweep(torch, gather_attend, fused_step) -> dict:
+    """K3 over the flagship's whole text context, beside K2 at the same
+    points: planes [2, 32, 20, 448, 1280] fp8, a bf16 query, bf16 rows (as
+    utils/probe_fused.py passes them), pos 35, 100, 200 and 440, on an
+    ``idx`` with duplicates and on a permutation. Each point is first
+    checked against the plain version (the write plane's window, the read
+    plane and the other layers bitwise; attn within 4 bf16 ulps); each
+    timed window cycles through the 32 layers, as a decode step does.
+    Works with any tree's ``ops/gather_attend`` of the same signature
+    (``--sweep-tree``)."""
+    import itertools
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fp8 = getattr(torch, FP8)
+    _, n_layer, bk, ctx, hd = SWEEP_SHAPE
+    n_head = 20
+    rows = [torch.randn((bk, hd), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2)]
+    q = torch.randn((bk, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    dup = torch.randint(0, bk, (bk,), generator=gen, device="cuda", dtype=torch.int32)
+    dup[1] = dup[0]
+    perm = torch.randperm(bk, generator=gen, device="cuda").to(torch.int32)
+    ck, cv = ((4 * torch.randn(SWEEP_SHAPE, generator=gen, device="cuda")).to(fp8) for _ in range(2))
+    host_ms = host_ms_per_call(lambda: gather_attend.fused_gather_attend(
+        ck, cv, dup, 3, SWEEP_POS[0], 0, q, *rows, n_head=n_head))
+    log(f"  K3 sweep: the wrapper's host time per call (bf16 rows, pos {SWEEP_POS[0]}) {host_ms:.4f} ms")
+    out = []
+    for pos in SWEEP_POS:
+        for iname, idx in (("duplicates", dup), ("permutation", perm)):
+            n_src = int(torch.unique(idx).numel())
+            rk, rv = ck.clone(), cv.clone()
+            got, _, _ = gather_attend.fused_gather_attend(ck, cv, idx, 3, pos, 0, q, *rows, n_head=n_head)
+            ref, _, _ = gather_attend.fused_gather_attend_reference(rk, rv, idx, 3, pos, 0, q, *rows, n_head=n_head)
+            torch.cuda.synchronize()
+            if not all(_k2_contract_equal(torch, a, b, 3, pos, 0) for a, b in ((ck, rk), (cv, rv))):
+                fail(f"K3 planes differ from its plain version at ctx {ctx}, pos {pos}, {iname}")
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= bf16_tolerance(ref.float().abs().max().item()):
+                fail(f"K3 attn differs from its plain version at ctx {ctx}, pos {pos}, {iname}: {err}")
+            del rk, rv
+            layers = itertools.cycle(range(n_layer))
+            ms = time_ms(lambda: gather_attend.fused_gather_attend(
+                ck, cv, idx, next(layers), pos, 0, q, *rows, n_head=n_head))
+            k2_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, next(layers), pos, 0, *rows))
+            bound = k3_bound_ms(hd, 1, 2, n_src, bk, pos, 2, torch.bfloat16)
+            out.append({"pos": pos, "idx": iname, "distinct_sources": n_src, "ms": ms, "k2_ms": k2_ms,
+                        "bound_ms": bound, "max_abs_err": err})
+            log(f"  K3 sweep {list(SWEEP_SHAPE)} fp8 pos {pos} {iname} ({n_src} distinct), bf16 rows: "
+                f"{ms:.4f} ms, K2 {k2_ms:.4f} ms (K3 - K2 {ms - k2_ms:.4f}), bound {bound:.4f} ms "
+                f"({bound / ms:.0%}); attn max_abs_err {err:.3g}")
+    del ck, cv
     return {"host_ms": host_ms, "points": out}
 
 
@@ -740,16 +807,17 @@ def phase_gather_attend(torch, gather_attend, fused_step) -> dict:
         planes = [(4 * torch.randn(shape, generator=gen, device="cuda")).to(dt) for _ in range(2)]
         q = torch.randn((bk, hd), generator=gen, device="cuda").to(q_dt)
         new = [torch.randn((bk, hd), generator=gen, device="cuda") for _ in range(2)]
+        bf16_rows = [n.to(torch.bfloat16) for n in new]  # as utils/probe_fused.py passes them
         err = 0.0
-        for parity in (0, 1):
+        for parity, rows in ((0, new), (1, new), (0, bf16_rows), (1, bf16_rows)):
             ck, cv = (p.clone() for p in planes)
             rk, rv = (p.clone() for p in planes)
             ok_, ov_ = (p.clone() for p in planes)
-            out, _, _ = gather_attend.fused_gather_attend(ck, cv, idx, layer, pos, parity, q, *new, n_head=n_head)
+            out, _, _ = gather_attend.fused_gather_attend(ck, cv, idx, layer, pos, parity, q, *rows, n_head=n_head)
             ref, _, _ = gather_attend.fused_gather_attend_reference(
-                rk, rv, idx, layer, pos, parity, q, *new, n_head=n_head)
+                rk, rv, idx, layer, pos, parity, q, *rows, n_head=n_head)
             orc, _, _ = gather_attend.reference_gather_attend(
-                ok_, ov_, idx, layer, pos, parity, q, *new, n_head=n_head)
+                ok_, ov_, idx, layer, pos, parity, q, *rows, n_head=n_head)
             torch.cuda.synchronize()
             w = 1 - parity
             for a, b in ((ck, rk), (cv, rv)):
@@ -770,29 +838,38 @@ def phase_gather_attend(torch, gather_attend, fused_step) -> dict:
                 fail(f"K3 attn differs from reference_gather_attend at {list(shape)} {dname} pos {pos} "
                      f"beyond {oracle_tol[dname]}")
             err = max(err, e)
-        # Bytes this run's data needs moved: K2's (each distinct source row
-        # of the window read once, the new rows read, the window [0, pos] of
-        # every row written; K and V), plus q read and attn written.
-        # Operations: 4·BK·pos·HD (scores and values) at the query dtype's
-        # peak rate. Timed on new rows already in the storage dtype; the
-        # wrapper's casts of f32 rows are timed beside it.
+        # Bytes this run's data needs moved, and operations: k3_bound_ms.
+        # Timed with bf16 rows, as utils/probe_fused.py passes them (the
+        # kernel casts them); f32 rows and rows already in the storage dtype
+        # are timed beside the record.
         isz = planes[0].element_size()
         n_src = int(torch.unique(idx).numel())
-        qo_bytes = 2 * bk * hd * q.element_size()
-        peak = PEAK_BF16_FLOPS if q_dt == torch.bfloat16 else PEAK_F32_FLOPS
-        by_ops = 4.0 * bk * pos * hd / peak * 1e3
-        bound = max(bytes_bound_ms(2 * hd * isz * (n_src * pos + bk + bk * (pos + 1)) + qo_bytes), by_ops)
-        stored = [n.to(dt) for n in new]
+        bound = k3_bound_ms(hd, isz, 2, n_src, bk, pos, q.element_size(), q_dt)
         kern_ms = time_ms(lambda: gather_attend.fused_gather_attend(
-            ck, cv, idx, layer, pos, 0, q, *stored, n_head=n_head))
+            ck, cv, idx, layer, pos, 0, q, *bf16_rows, n_head=n_head))
         log(
             f"  K3 {list(shape)} {dname} pos {pos}: planes bitwise equal, attn max_abs_err {err:.3g} "
-            f"(both parities; within {oracle_tol[dname]} of reference_gather_attend); "
-            f"kernel {kern_ms:.4f} ms, bound {bound:.4f} ms (bytes; {n_src} distinct of {bk} source rows)"
+            f"(both parities; f32 and bf16 rows; within {oracle_tol[dname]} of reference_gather_attend); "
+            f"kernel with bf16 rows {kern_ms:.4f} ms, bound {bound:.4f} ms (bytes; {n_src} distinct of "
+            f"{bk} source rows)"
         )
+        if dname == "fp8" and pos == 4:
+            floor_ms = kern_ms  # the record's shape at pos 4: the kernel's chain of dependent steps
         if record is None and pos == 35:
-            cast_ms = time_ms(lambda: gather_attend.fused_gather_attend(
+            stored = [n.to(dt) for n in new]
+            f32_ms = time_ms(lambda: gather_attend.fused_gather_attend(
                 ck, cv, idx, layer, pos, 0, q, *new, n_head=n_head))
+            stored_ms = time_ms(lambda: gather_attend.fused_gather_attend(
+                ck, cv, idx, layer, pos, 0, q, *stored, n_head=n_head))
+            host_ms = host_ms_per_call(lambda: gather_attend.fused_gather_attend(
+                ck, cv, idx, layer, pos, 0, q, *bf16_rows, n_head=n_head))
+            per_call = {r: kernels_per_call(torch, lambda: gather_attend.fused_gather_attend(
+                ck, cv, idx, layer, pos, 0, q, *rows_, n_head=n_head))
+                for r, rows_ in (("bf16", bf16_rows), ("f32", new))}
+            for r, names in per_call.items():
+                if len(names) != 1 or gather_attend.KERNEL_SYMBOL not in names[0]:
+                    fail(f"K3 with {r} rows launched {names}, expected its one kernel")
+            k2_ms = time_ms(lambda: fused_step.permute_append(ck, cv, idx, layer, pos, 0, *bf16_rows))
             plain_ms = time_ms(lambda: gather_attend.fused_gather_attend_reference(
                 ck, cv, idx, layer, pos, 0, q, *stored, n_head=n_head))
             qh = q.view(bk, 1, n_head, dh)
@@ -818,24 +895,28 @@ def phase_gather_attend(torch, gather_attend, fused_step) -> dict:
             lib_ms = time_ms(library)
             perm = torch.randperm(bk, generator=gen, device="cuda").to(torch.int32)
             perm_ms = time_ms(lambda: gather_attend.fused_gather_attend(
-                ck, cv, perm, layer, pos, 0, q, *stored, n_head=n_head))
-            perm_bound = max(bytes_bound_ms(2 * hd * isz * (bk * pos + bk + bk * (pos + 1)) + qo_bytes), by_ops)
+                ck, cv, perm, layer, pos, 0, q, *bf16_rows, n_head=n_head))
+            perm_bound = k3_bound_ms(hd, isz, 2, bk, bk, pos, q.element_size(), q_dt)
             log(
-                f"    with the f32 rows' casts {cast_ms:.4f} ms; plain {plain_ms:.4f} ms; hybrid composite "
-                f"(K2 + qkv_attention) {hybrid_ms:.4f} ms; index_select ×2 + upcast ×2 + "
-                f"scaled_dot_product_attention (window [0, pos) only, no append) {lib_ms:.4f} ms; on a "
-                f"permutation without duplicates: kernel {perm_ms:.4f} ms, bound {perm_bound:.4f} ms"
+                f"    with f32 rows {f32_ms:.4f} ms, with rows already in fp8 {stored_ms:.4f} ms; one "
+                f"kernel per call (bf16 and f32 rows); at pos 4 {floor_ms:.4f} ms; the wrapper's host "
+                f"time per call {host_ms:.4f} ms; K2 on the same call {k2_ms:.4f} ms; plain "
+                f"{plain_ms:.4f} ms; hybrid composite (K2 + qkv_attention) {hybrid_ms:.4f} ms; "
+                f"index_select ×2 + upcast ×2 + scaled_dot_product_attention (window [0, pos) only, no "
+                f"append) {lib_ms:.4f} ms; on a permutation without duplicates: kernel {perm_ms:.4f} ms, "
+                f"bound {perm_bound:.4f} ms"
             )
             record = {
                 "name": "gather_attend", "route": "cuda",
                 "source": "whisper_tpu_torch/csrc/gather_attend.cu",
                 "replaces": "whisper_tpu/ops/fused_step.py:328",
                 "launches": None, "max_abs_err": err, "ms": kern_ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "bytes" if bound > by_ops else "operations",
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": lib_ms,
                 "library_call": "index_select x2 + .to(bfloat16) x2 + scaled_dot_product_attention",
-                "hybrid_ms": hybrid_ms, "cast_ms": cast_ms,
+                "hybrid_ms": hybrid_ms, "rows": "bfloat16", "f32_rows_ms": f32_ms,
+                "fp8_rows_ms": stored_ms, "pos4_ms": floor_ms, "host_ms": host_ms,
+                "kernels_per_call": len(per_call["bf16"]), "k2_ms": k2_ms,
                 "shape": list(shape), "dtype": FP8, "pos": pos, "distinct_sources": n_src,
                 "permutation_ms": perm_ms, "permutation_bound_ms": perm_bound,
             }
@@ -924,11 +1005,13 @@ def phase_mel_fused(torch, mel_fused) -> dict:
                 log_mel_spectrogram(x, n_mels=n_mels)
             torch.cuda.synchronize()
             fe_wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+            kernel_gflop = b * 3000 * mel_fused.kernel_flops(n_mels) / 1e9
+            host_ms = host_ms_per_call(lambda: mel_fused.log10_mel_kernel(x, n_mels))
             log(f"    kernel {kern_ms:.4f} ms, with the torch epilogue {wrap_ms:.4f} ms; bound "
                 f"{bound['ms']:.4f} ms ({bound['by']}; rFFT + filterbank non-zeros {bound['gflop']:.3f} "
-                f"GFLOP); the kernel's dense DFT {bound['dense_gflop']:.2f} GFLOP, "
-                f"{bound['dense_gflop'] / kern_ms:.1f} TFLOP/s, its own least time {bound['dense_ms']:.4f} ms; "
-                f"plain {plain_ms:.4f} ms; torch.stft + mel matmul + log10 (cuFFT, cuBLAS, several calls; "
+                f"GFLOP; {bound['ms'] / kern_ms:.1%}); the kernel's own operations (20 × 20 real DFT, "
+                f"sparse mel) {kernel_gflop:.3f} GFLOP, {kernel_gflop / kern_ms:.1f} TFLOP/s; the "
+                f"wrapper's host time per call {host_ms:.4f} ms; plain {plain_ms:.4f} ms; torch.stft + mel matmul + log10 (cuFFT, cuBLAS, several calls; "
                 f"max_abs_err {lib_err:.3g} vs the kernel) {lib_ms:.4f} ms; frontend/mel.py host wall "
                 f"time (uploads its constants per call) {fe_wall_ms:.4f} ms")
             record = {
@@ -940,7 +1023,7 @@ def phase_mel_fused(torch, mel_fused) -> dict:
                 "library_ms": lib_ms,
                 "library_call": "torch.stft (cuFFT) + abs().square() + mel matmul + log10, several calls",
                 "library_max_abs_err": lib_err, "bound_gflop": bound["gflop"],
-                "dense_dft_gflop": bound["dense_gflop"], "dense_dft_least_ms": bound["dense_ms"],
+                "kernel_gflop": kernel_gflop, "kernel_tflops": kernel_gflop / kern_ms, "host_ms": host_ms,
                 "wrapper_ms": wrap_ms, "frontend_mel_wall_ms": fe_wall_ms,
                 "shape": list(x.shape), "n_mels": n_mels, "max_abs_err_vs_frontend_mel": err_eng,
             }
@@ -1318,21 +1401,39 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
 
 
+def k5_times(torch, mel_fused) -> dict:
+    """K5 on the main path's batch ([4, 480000], 128 mels): the kernel
+    alone and with its epilogue, device time, and the wrapper's host time
+    per call. Works with any tree's ``frontend/mel_fused`` of the same
+    signature (``--sweep-tree``)."""
+    _, batch, _ = main_path_batch()
+    x = torch.from_numpy(batch).cuda()
+    out = {"ms": time_ms(lambda: mel_fused.log10_mel_kernel(x, 128)),
+           "wrapper_ms": time_ms(lambda: mel_fused.log_mel_spectrogram_fused(x, n_mels=128)),
+           "host_ms": host_ms_per_call(lambda: mel_fused.log10_mel_kernel(x, 128))}
+    log(f"  K5 [4, 480000] 128 mels: kernel {out['ms']:.4f} ms, with the epilogue "
+        f"{out['wrapper_ms']:.4f} ms, host {out['host_ms']:.4f} ms per call")
+    return out
+
+
 def sweep_tree(tree: str) -> None:
-    """``--sweep-tree DIR``: only K2's sweep (:func:`k2_sweep`), with the
-    ``whisper_tpu_torch`` of the checkout at DIR (its kernel built there),
-    so that two trees' K2 compare on one card; the last line is the JSON
-    list of the sweep's records."""
+    """``--sweep-tree DIR``: only the sweeps of K2 (:func:`k2_sweep`) and K3
+    (:func:`k3_sweep`) and K5's times (:func:`k5_times`), with the
+    ``whisper_tpu_torch`` of the checkout at DIR (its kernels built there),
+    so that two trees compare on one card; the last line is the JSON
+    object of the three."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    from whisper_tpu_torch.ops import build, fused_step
+    from whisper_tpu_torch.frontend import mel_fused
+    from whisper_tpu_torch.ops import build, fused_step, gather_attend
 
-    build.build([fused_step.KERNEL])
-    log(f"K2 sweep of {os.path.dirname(fused_step.__file__)}; {card_line()}")
-    print(json.dumps(k2_sweep(torch, fused_step)))
+    build.build([fused_step.KERNEL, gather_attend.KERNEL, mel_fused.KERNEL])
+    log(f"sweeps of {os.path.dirname(os.path.dirname(fused_step.__file__))}; {card_line()}")
+    print(json.dumps({"k2": k2_sweep(torch, fused_step), "k3": k3_sweep(torch, gather_attend, fused_step),
+                      "k5": k5_times(torch, mel_fused)}))
 
 
 def main() -> None:
@@ -1377,6 +1478,7 @@ def main() -> None:
     k2["cast_cases"] = phase_store_cast(torch, fused_step)
     k2["sweep"] = k2_sweep(torch, fused_step)
     k3 = phase_gather_attend(torch, gather_attend, fused_step)
+    k3["sweep"] = k3_sweep(torch, gather_attend, fused_step)
     k5 = phase_mel_fused(torch, mel_fused)
 
     log("[4] main path: large-v3, greedy, bf16, language detection")

@@ -96,6 +96,5 @@ def test_refusals(card):
         ga.fused_gather_attend(planes, planes.clone(), idx.long(), 0, 1, 0, x, x, x, n_head=2)
     with pytest.raises(TypeError):  # float16 planes
         ga.fused_gather_attend(planes.half(), planes.half(), idx, 0, 1, 0, x, x, x, n_head=2)
-    unaligned = torch.zeros(2 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(2, 64)
-    with pytest.raises(ValueError):  # new rows in the storage dtype at a 2-byte offset
-        ga.fused_gather_attend(planes, planes.clone(), idx, 0, 1, 0, x, unaligned, x, n_head=2)
+    with pytest.raises(TypeError):  # float64 rows: a pair outside CAST_PAIRS
+        ga.fused_gather_attend(planes, planes.clone(), idx, 0, 1, 0, x, x.double(), x.double(), n_head=2)

@@ -1,5 +1,5 @@
 // Conversion of new cache rows to the cache's storage dtype, inside the
-// kernel that stores them (K2, permute_append.cu).
+// kernel that stores them (K2, permute_append.cu; K3, gather_attend.cu).
 //
 // The result must be BITWISE what PyTorch's `tensor.to(storage_dtype)`
 // gives on the card: the eager beam step writes its cache with `.to()`

@@ -13,9 +13,11 @@ There is no fallback: a CUDA tensor the kernel does not take raises.
 Plane semantics are K2's: the read plane ``parity`` is never written; in
 the write plane ``1 - parity``, rows ``[0, pos)`` are the read plane's rows
 ``idx[b]`` moved as raw bytes and row ``pos`` holds the new rows cast to the
-storage dtype with torch's ``.to``, so the plane bytes equal K2's. Past
-``pos`` the write plane is unspecified. The planes are updated in place and
-returned.
+storage dtype with torch's ``.to``, so the plane bytes equal K2's. The
+CUDA kernel casts the new rows itself, bitwise as ``.to()``, from the pairs
+of dtypes in ``ops/fused_step.CAST_PAIRS`` (K2's, ``csrc/store_cast.cuh``)
+and at any strides, so a call is one launch. Past ``pos`` the write plane
+is unspecified. The planes are updated in place and returned.
 
 Arithmetic is JAX's kernel plus epilogue: the gathered K/V are cast to q's
 dtype; scores are f32 products times Dh^-½; per (row, head) the max ``m`` and
@@ -30,20 +32,23 @@ stored new rows read back in f32) merges as ``m2 = max(m, s_self)``,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from whisper_tpu_torch.models import layers
-from whisper_tpu_torch.ops.fused_step import permute_append_reference
+from whisper_tpu_torch.ops.fused_step import CAST_PAIRS, DTYPE_CODES, e4m3_saturates, permute_append_reference
 
 KERNEL = "gather_attend"
 KERNEL_SYMBOL = "gather_attend_kernel"  # in the names of its device functions (profiler traces)
+STORAGE_DTYPES = (torch.float8_e4m3fn, torch.bfloat16, torch.float32)  # the planes the kernel reads
+COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # q and attn
 _VEC = 16  # bytes per vector load and store in the kernel
 _MAX_HEAD_BYTES = 512  # a head's slice of a position: at most 32 vectors
-_MAX_POS = 8192  # the kernel keeps one f32 score per position in shared memory
-_DTYPE_CODE = {torch.float8_e4m3fn: 0, torch.bfloat16: 1, torch.float32: 2}
-_COMPUTE_CODE = {torch.bfloat16: 1, torch.float32: 2}
+_THREADS = 128  # per block (csrc/gather_attend.cu kThreads)
+_REG_PASSES = 4  # window passes the kernel holds in registers (kRegPasses)
+_SHARED_BYTES = 227 * 1024  # shared memory a block may use on the H100
 
 # Launches of the CUDA kernel in this process (plain version not counted).
 launches = 0
@@ -159,15 +164,15 @@ def fused_gather_attend(
     pos: int,  # the new rows land at this position; the query attends [0, pos]
     parity: int,  # read plane; the write plane is 1 - parity
     q: torch.Tensor,  # [BK, HD] compute dtype (bfloat16 or float32)
-    k_new: torch.Tensor,  # [BK, HD] new rows, any float dtype
+    k_new: torch.Tensor,  # [BK, HD] new rows, any strides; on CUDA a pair of CAST_PAIRS
     v_new: torch.Tensor,
     *,
     n_head: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's pending-permutation attention step, in place. CPU tensors
     take the plain version; CUDA tensors launch the kernel (one launch
-    covers K, V and every head). Returns (attn [BK, HD] in q.dtype,
-    cache_k, cache_v)."""
+    covers K, V, every head and the new rows' cast). Returns (attn [BK, HD]
+    in q.dtype, cache_k, cache_v)."""
     global launches
     if cache_k.device.type == "cpu":
         return fused_gather_attend_reference(
@@ -175,40 +180,10 @@ def fused_gather_attend(
         )
     if cache_k.device.type != "cuda":
         raise ValueError(f"{KERNEL}: no kernel for device {cache_k.device}")
-    _check(cache_k, cache_v, idx, layer, pos, parity, q, k_new, v_new, n_head)
-    _, n_layer, bk, ctx, hd = cache_k.shape
-    isz = cache_k.element_size()
-    if cache_k.dtype not in _DTYPE_CODE or q.dtype not in _COMPUTE_CODE:
-        raise TypeError(
-            f"{KERNEL}: storage must be float8_e4m3fn, bfloat16 or float32 and q bfloat16 or "
-            f"float32, got {cache_k.dtype} and {q.dtype}"
-        )
-    if not supported(hd, isz, n_head):
-        raise ValueError(
-            f"{KERNEL}: a head's slice of a position ({hd // n_head * isz} bytes) must be a "
-            f"power-of-two count of {_VEC}-byte vectors, at most {_MAX_HEAD_BYTES} bytes"
-        )
-    if pos > _MAX_POS:
-        raise ValueError(f"{KERNEL}: pos {pos} > {_MAX_POS}")
-    if idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise TypeError(f"{KERNEL}: on CUDA idx must be contiguous int32, got {idx.dtype}")
-    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
-        if not t.is_contiguous() or t.data_ptr() % _VEC:
-            raise ValueError(f"{KERNEL}: {name} must be contiguous and 16-byte aligned")
-    # The kernel moves the new rows as bytes: they go to the storage dtype
-    # here, with the same cast as K2's wrapper and the eager step.
-    kn = k_new.to(cache_k.dtype).contiguous()
-    vn = v_new.to(cache_v.dtype).contiguous()
-    for name, t in (("k_new", kn), ("v_new", vn)):
-        if t.data_ptr() % _VEC:  # a view at an unaligned offset, passed through as is
-            raise ValueError(f"{KERNEL}: {name} in the storage dtype must be 16-byte aligned")
     qc = q.contiguous()
     out = torch.empty_like(qc)
-    dh = hd // n_head
     rc = _library().gather_attend(
-        cache_k.data_ptr(), cache_v.data_ptr(), kn.data_ptr(), vn.data_ptr(), idx.data_ptr(),
-        qc.data_ptr(), out.data_ptr(), n_layer, bk, ctx, hd, n_head, int(layer), int(pos),
-        int(parity), _DTYPE_CODE[cache_k.dtype], _COMPUTE_CODE[q.dtype], float(dh) ** -0.5,
+        *_kernel_args(cache_k, cache_v, idx, layer, pos, parity, qc, k_new, v_new, out, n_head),
         cache_k.device.index or 0, torch.cuda.current_stream(cache_k.device).cuda_stream,
     )
     if rc != 0:
@@ -217,17 +192,74 @@ def fused_gather_attend(
     return out, cache_k, cache_v
 
 
+def _shared_bytes(pos: int, hd: int, itemsize: int, n_head: int) -> int:
+    """Shared memory a block of the kernel needs: its static value sums, the
+    scores of the window, and the V window itself where it passes
+    ``_REG_PASSES`` passes (csrc/gather_attend.cu ``launch``)."""
+    head_vecs = hd // n_head * itemsize // _VEC
+    per_pass = _THREADS // head_vecs
+    static = (_THREADS // 32 + 2) * _MAX_HEAD_BYTES * 4  # the warps' value sums, the new rows
+    dynamic = -(-pos // 4) * 16 + 16
+    if -(-pos // per_pass) > _REG_PASSES:
+        dynamic += pos * head_vecs * _VEC
+    return static + dynamic
+
+
+def _kernel_args(cache_k, cache_v, idx, layer, pos, parity, q, k_new, v_new, out, n_head) -> tuple:
+    """Check the operands of a CUDA launch and return the C entry's
+    arguments up to ``scale``; raises where the kernel does not take them.
+    The new rows go as they are: pointer, row stride in bytes, element
+    stride, dtype code (``ops/fused_step.DTYPE_CODES``, K2's)."""
+    _check(cache_k, cache_v, idx, layer, pos, parity, q, k_new, v_new, n_head)
+    _, n_layer, bk, ctx, hd = cache_k.shape
+    isz = cache_k.element_size()
+    if cache_k.dtype not in STORAGE_DTYPES or q.dtype not in COMPUTE_DTYPES:
+        raise TypeError(
+            f"{KERNEL}: storage must be float8_e4m3fn, bfloat16 or float32 and q bfloat16 or "
+            f"float32, got {cache_k.dtype} and {q.dtype}"
+        )
+    if v_new.dtype != k_new.dtype or (k_new.dtype, cache_k.dtype) not in CAST_PAIRS:
+        raise TypeError(
+            f"{KERNEL}: no conversion of {k_new.dtype} / {v_new.dtype} rows into "
+            f"{cache_k.dtype} planes on CUDA"
+        )
+    if not supported(hd, isz, n_head):
+        raise ValueError(
+            f"{KERNEL}: a head's slice of a position ({hd // n_head * isz} bytes) must be a "
+            f"power-of-two count of {_VEC}-byte vectors, at most {_MAX_HEAD_BYTES} bytes"
+        )
+    if _shared_bytes(pos, hd, isz, n_head) > _SHARED_BYTES:
+        raise ValueError(f"{KERNEL}: the window at pos {pos} does not fit in a block's shared memory")
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise TypeError(f"{KERNEL}: on CUDA idx must be contiguous int32, got {idx.dtype}")
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if not t.is_contiguous() or t.data_ptr() % _VEC:
+            raise ValueError(f"{KERNEL}: {name} must be contiguous and 16-byte aligned")
+    if not q.is_contiguous() or out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"{KERNEL}: q must be contiguous and out like it")
+    rsz = k_new.element_size()
+    return (
+        cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_new.stride(0) * rsz, k_new.stride(1), v_new.stride(0) * rsz, v_new.stride(1),
+        DTYPE_CODES[k_new.dtype], rsz, DTYPE_CODES[cache_k.dtype], int(e4m3_saturates()),
+        idx.data_ptr(), q.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        n_layer, bk, ctx, hd, n_head, int(layer), int(pos), int(parity), float(hd // n_head) ** -0.5,
+    )
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The kernel library with its entry's argument types, bound once."""
     from whisper_tpu_torch.ops.build import load_library
 
     lib = load_library(KERNEL)
-    fn = lib.gather_attend
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    lib.gather_attend.argtypes = (
+        [ctypes.c_void_p] * 4  # planes K, V; new rows K, V
+        + [ctypes.c_int64] * 4  # row and element strides of the new rows
+        + [ctypes.c_int] * 4  # row dtype, row itemsize, storage dtype, e4m3_saturates
+        + [ctypes.c_void_p] * 3  # idx, q, out
+        + [ctypes.c_int] * 9  # compute dtype, n_layer, bk, ctx, hd, n_head, layer, pos, parity
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, device, stream
+    )
+    lib.gather_attend.restype = ctypes.c_int
     return lib
