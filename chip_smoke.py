@@ -70,7 +70,31 @@ Phases, in order; any failure exits non-zero before the last line:
    card's "hybrid", the card's "off" and the CPU's "off"; beam 3 with int8
    weights and the fp8 KV cache, card "hybrid" against CPU "off"; and beam
    3 on two ranks on the card (``mesh_shape=(2, 1)``) under "hybrid" (K2′)
-   and "off" against CPU "off".
+   and "off" against CPU "off". Then serving, ``audio_ctx=None``, on
+   int16-exact utterances: ``ContinuousTranscriber`` (2 slots, 5
+   utterances: slots reused), ``DisaggregatedTranscriber`` and
+   ``AsyncTranscriber`` must each give tokens equal to ``engine.transcribe``
+   on the card and to the same class on the CPU; the slot pool with the fp8
+   KV cache (its per-row byte scatter) card against CPU.
+6. Serving at full width, large-v3 (``engine/serving.py``,
+   ``engine/http_server.py``):
+6a. The slot pool: greedy bf16, ``audio_ctx=None``, phase 4's weights,
+   64-token budget; ``ContinuousTranscriber(n_slots=8, prefill_batch=2)``,
+   then ``DisaggregatedTranscriber`` with the same arguments, each given 12
+   utterances of 2–30 s in three waves (one result of a wave awaited before
+   the next is submitted). Every future resolves within its timeout and
+   passes ``check_results``; K1 launches exactly 32 × the prefill
+   dispatches, K2, K2′, K3, K4 and K5 never. Prints request latency p50/p95
+   (submit → result), audio-s/s, occupancy, dispatch efficiency and
+   macro-steps, and (information only) token agreement with
+   ``engine.transcribe`` of each utterance.
+6b. ``AsyncTranscriber(max_batch=4)`` over phase 4b's flagship engine, 8
+   utterances from 4 threads: K1 32 × flushes, K2 32 × beam steps, K3, K4,
+   K5 and K2′ never; latency p50/p95 and audio-s/s.
+6c. ``TranscribeServer`` in "continuous" mode on ``127.0.0.1:0`` over the
+   6a engine: one WAV and one raw-PCM POST, each response's text equal to
+   the same slot pool's result for that audio; ``/metrics`` reports 2
+   requests, 0 errors and a non-zero throughput.
 
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -1329,6 +1353,70 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
     return k2s
 
 
+SERVING_TIMEOUT_S = 600  # per future: a hang fails the run, it does not stall it
+
+
+def int16_exact(x: np.ndarray) -> np.ndarray:
+    """``x`` on the int16 grid, as a WAV file's samples are: the engine
+    ships audio as int16 and the slot pool's prefill takes float32, and on
+    such samples the two see the same audio."""
+    return (np.round(np.clip(x, -1.0, 1.0) * 32767.0) / 32768.0).astype(np.float32)
+
+
+def _serve_all(transcriber, utts) -> list:
+    with transcriber as t:
+        futures = [t.submit(u) for u in utts]
+        return [f.result(timeout=SERVING_TIMEOUT_S) for f in futures]
+
+
+def _same_tokens(a, b) -> bool:
+    return a.length == b.length and np.array_equal(a.tokens[: a.length], b.tokens[: b.length])
+
+
+def phase_serving_card_vs_cpu(torch, params, cfg, Monolith) -> None:
+    """Phase 5's serving part (docstring): the serving classes on the card
+    against ``engine.transcribe`` on the card and against themselves on the
+    CPU, at ``tiny`` f32 (TF32 already off)."""
+    from whisper_tpu_torch.engine.serving import (
+        AsyncTranscriber,
+        ContinuousTranscriber,
+        DisaggregatedTranscriber,
+    )
+
+    cfg = dataclasses.replace(cfg, audio_ctx=None)
+    utts = [int16_exact(synthetic_utterance(s, 40 + i)) for i, s in enumerate((3.0, 7.5, 12.0, 21.0, 30.0))]
+    classes = {
+        "ContinuousTranscriber": lambda e: ContinuousTranscriber(e, n_slots=2, prefill_batch=2),
+        "DisaggregatedTranscriber": lambda e: DisaggregatedTranscriber(e, n_slots=2, prefill_batch=2),
+        "AsyncTranscriber": lambda e: AsyncTranscriber(e, max_batch=2),
+    }
+    runs = {}
+    for device in ("cuda", "cpu"):
+        engine = Monolith.from_assets(params, cfg, device=device)
+        runs[device, "engine.transcribe"] = [engine.transcribe(u) for u in utts]
+        for name, make in classes.items():
+            runs[device, name] = _serve_all(make(engine), utts)
+    ref = runs["cuda", "engine.transcribe"]
+    for r in ref:
+        log(f"  serving, card engine.transcribe: {r.tokens[: r.length].tolist()}")
+    for name in classes:
+        card, cpu = runs["cuda", name], runs["cpu", name]
+        if not all(_same_tokens(a, b) and a.language == b.language for a, b in zip(card, ref)):
+            fail(f"tiny f32 serving: {name} on the card differs from engine.transcribe on the card")
+        if not all(_same_tokens(a, b) for a, b in zip(card, cpu)):
+            fail(f"tiny f32 serving: {name} differs between card and CPU")
+        log(f"  serving, {name} ({len(utts)} utterances): card == engine.transcribe == CPU")
+    fp8 = dataclasses.replace(cfg, kv_cache_dtype=FP8)
+    card, cpu = (
+        _serve_all(ContinuousTranscriber(Monolith.from_assets(params, fp8, device=d), n_slots=2, prefill_batch=2), utts)
+        for d in ("cuda", "cpu")
+    )
+    if not all(_same_tokens(a, b) for a, b in zip(card, cpu)):
+        fail("tiny f32 serving: ContinuousTranscriber with the fp8 KV cache differs between card and CPU")
+    log(f"  serving, ContinuousTranscriber with the fp8 KV cache: card == CPU "
+        f"({sum(a.length for a in card)} tokens)")
+
+
 def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
     from whisper_tpu_torch.models.params import init_params
 
@@ -1399,6 +1487,183 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
                      f"K4 {n['permute_rows']}, K2 {n['permute_append']} over {steps} steps")
         log(f"  beam 3, DP(2) on the card, {mode}: both ranks equal to cpu off "
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
+
+    phase_serving_card_vs_cpu(torch, params, cfg, Monolith)
+
+
+SERVING_LENGTHS_S = (2.0, 4.5, 7.0, 9.5, 12.0, 14.5, 17.0, 19.5, 22.0, 24.5, 27.0, 30.0)
+
+
+def serving_utterances() -> list:
+    return [int16_exact(synthetic_utterance(s, 20 + i)) for i, s in enumerate(SERVING_LENGTHS_S)]
+
+
+def _drive(transcriber, utts, waves) -> tuple:
+    """Submit ``utts`` in ``waves`` (lists of indices); before each later
+    wave, wait on the first result of the one before. Returns (results,
+    per-request latencies in s, submit → result, wall s). Call it inside
+    the transcriber's ``with``: the latencies are complete once it closed."""
+    lat = [None] * len(utts)
+    futures = [None] * len(utts)
+    t_start = time.perf_counter()
+    for w, wave in enumerate(waves):
+        if w:
+            futures[waves[w - 1][0]].result(timeout=SERVING_TIMEOUT_S)
+        for i in wave:
+            t0 = time.perf_counter()
+            futures[i] = transcriber.submit(utts[i])
+            futures[i].add_done_callback(lambda _f, i=i, t0=t0: lat.__setitem__(i, time.perf_counter() - t0))
+    results = [f.result(timeout=SERVING_TIMEOUT_S) for f in futures]
+    return results, lat, time.perf_counter() - t_start
+
+
+def _latency_line(lat, audio_s, wall) -> tuple:
+    p50, p95 = (float(np.percentile(lat, q)) for q in (50, 95))
+    return p50, p95, f"latency p50 {p50 * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms; {audio_s / wall:.2f} audio-s/s"
+
+
+def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
+    """Phase 6a for one slot-pool class: the 12 utterances in three waves,
+    launches counted over the run."""
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    pool = cls(engine, n_slots=8, prefill_batch=2)
+    pool.warmup()
+    reset_counts(*kernels)  # counts start here: the slot pool's run
+    with pool:
+        results, lat, wall = _drive(pool, utts, [list(range(i, i + 4)) for i in (0, 4, 8)])
+    torch.cuda.synchronize()
+    k1 = attention.launches
+    others = (fused_step.launches, fused_step.sharded_launches, gather_attend.launches, gather.launches,
+              mel_fused.launches)  # counts end here
+    check_results(results, engine, engine.dims.n_vocab)
+    audio_s = sum(len(u) for u in utts) / 16_000.0
+    p50, p95, line = _latency_line(lat, audio_s, wall)
+    prefills, steps = pool._prefill_dispatches, pool._step_dispatches
+    log(f"  {cls.__name__}: {len(utts)} utterances ({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; "
+        f"occupancy {pool.occupancy:.3f}, dispatch efficiency {pool.dispatch_efficiency:.3f}, "
+        f"{steps} macro-steps of {pool.sync_every} steps, {prefills} prefill dispatches")
+    log(f"    launches: K1 {k1} ({prefills} prefills × {LARGE_V3_ENC_LAYERS} layers); K2, K2′, K3, K4, K5 {others}")
+    if k1 != LARGE_V3_ENC_LAYERS * prefills or prefills == 0:
+        fail(f"{cls.__name__}: K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS} × {prefills} prefills")
+    if any(others):
+        fail(f"{cls.__name__}: K2, K2′, K3, K4, K5 launched {others} times, expected none")
+    return {"class": cls.__name__, "results": results, "k1": k1, "prefill_dispatches": prefills,
+            "macro_steps": steps, "latency_p50_s": p50, "latency_p95_s": p95, "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "occupancy": pool.occupancy,
+            "dispatch_efficiency": pool.dispatch_efficiency}
+
+
+def phase_serving(torch, kernels, EngineConfig, EngineType, create_engine) -> tuple:
+    """Phase 6a (docstring). Returns the engine and each class's record."""
+    from whisper_tpu_torch.engine.serving import ContinuousTranscriber, DisaggregatedTranscriber
+
+    cfg = EngineConfig(model="large-v3", max_new_tokens=64, audio_ctx=None)
+    engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")  # phase 4's weights
+    utts = serving_utterances()
+    records = [phase_slot_pool(torch, kernels, engine, utts, cls)
+               for cls in (ContinuousTranscriber, DisaggregatedTranscriber)]
+    single = [engine.transcribe(u) for u in utts]
+    for rec in records:
+        agree = sum(_same_tokens(a, b) for a, b in zip(rec.pop("results"), single))
+        log(f"  information: {rec['class']}: {agree} of {len(utts)} utterances token-equal to "
+            f"engine.transcribe (bf16 at other batch shapes may flip near ties)")
+        rec["agree_with_transcribe"] = agree
+    return engine, records
+
+
+def phase_async_flagship(torch, kernels, beam, engine) -> dict:
+    """Phase 6b (docstring): 8 utterances from 4 threads through
+    ``AsyncTranscriber(max_batch=4)`` over the flagship engine."""
+    import threading
+
+    from whisper_tpu_torch.engine.serving import AsyncTranscriber
+
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    utts = serving_utterances()[2:10]
+    lat = [None] * len(utts)
+    results = [None] * len(utts)
+
+    def client(t, lo):
+        for i in (lo, lo + 4):
+            t0 = time.perf_counter()
+            results[i] = t.submit(utts[i]).result(timeout=SERVING_TIMEOUT_S)
+            lat[i] = time.perf_counter() - t0
+
+    def batches_run():  # transcribe_batch calls: the engine times each as "model"
+        stats = engine.timer.summary().get("model")
+        return stats.count if stats else 0
+
+    flushes0 = batches_run()
+    reset_counts(*kernels)  # counts start here: the micro-batcher's run
+    beam.steps = 0
+    t_start = time.perf_counter()
+    with AsyncTranscriber(engine, max_batch=4, max_wait_ms=20) as t:
+        threads = [threading.Thread(target=client, args=(t, c)) for c in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=2 * SERVING_TIMEOUT_S)
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    k1, k2, steps = attention.launches, fused_step.launches, beam.steps
+    others = (gather.launches, gather_attend.launches, mel_fused.launches, fused_step.sharded_launches)
+    # counts end here
+    flushes = batches_run() - flushes0
+    if any(th.is_alive() for th in threads) or any(r is None for r in results):
+        fail("async flagship: a client thread did not finish")
+    check_results(results, engine, engine.dims.n_vocab)
+    audio_s = sum(len(u) for u in utts) / 16_000.0
+    p50, p95, line = _latency_line(lat, audio_s, wall)
+    log(f"  AsyncTranscriber(max_batch=4), flagship: {len(utts)} utterances from 4 threads "
+        f"({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; {flushes} flushes, {steps} beam steps")
+    log(f"    launches: K1 {k1} ({flushes} flushes × {LARGE_V3_ENC_LAYERS}), K2 {k2} ({steps} steps × "
+        f"{LARGE_V3_DEC_LAYERS}); K4, K3, K5, K2′ {others}")
+    if flushes == 0 or k1 != LARGE_V3_ENC_LAYERS * flushes:
+        fail(f"async flagship: K1 launched {k1} times over {flushes} flushes")
+    if steps == 0 or k2 != LARGE_V3_DEC_LAYERS * steps:
+        fail(f"async flagship: K2 launched {k2} times over {steps} beam steps")
+    if any(others):
+        fail(f"async flagship: K4, K3, K5, K2′ launched {others} times, expected none")
+    return {"k1": k1, "k2": k2, "flushes": flushes, "beam_steps": steps, "latency_p50_s": p50,
+            "latency_p95_s": p95, "wall_s": wall, "audio_s_per_s": audio_s / wall}
+
+
+def phase_http(engine) -> None:
+    """Phase 6c (docstring)."""
+    import urllib.request
+
+    from whisper_tpu_torch.audio.wav import read_wav_bytes, write_wav
+    from whisper_tpu_torch.engine.http_server import TranscribeServer
+
+    utts = serving_utterances()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # localhost, never a proxy
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "utterance.wav")
+        write_wav(path, utts[3])
+        with open(path, "rb") as f:
+            wav = f.read()
+    bodies = [("WAV", wav, "audio/wav", read_wav_bytes(wav)),
+              ("raw PCM", utts[6].astype("<f4").tobytes(), "application/octet-stream+pcm", utts[6])]
+    with TranscribeServer(engine, mode="continuous") as server:
+        base = f"http://{server.host}:{server.port}"
+        for name, body, ctype, samples in bodies:
+            req = urllib.request.Request(base + "/transcribe", data=body, headers={"Content-Type": ctype},
+                                         method="POST")
+            with opener.open(req, timeout=SERVING_TIMEOUT_S) as resp:
+                status, out = resp.status, json.loads(resp.read())
+            ref = server._transcriber.submit(samples).result(timeout=SERVING_TIMEOUT_S)
+            log(f"  POST {name} ({len(body)} bytes): {status}, length {out['length']}, language "
+                f"{out['language']}; the same pool's result: length {ref.length}")
+            if status != 200 or out["text"] != ref.clean_text() or out["length"] != ref.length:
+                fail(f"HTTP {name}: {status} {out} differs from the slot pool's result")
+        with opener.open(base + "/metrics", timeout=60) as resp:
+            metrics = json.loads(resp.read())
+    tp = metrics["throughput"]
+    log(f"  /metrics: {metrics['requests']} requests, {metrics['errors']} errors, occupancy "
+        f"{metrics['occupancy']:.3f}, engine throughput {tp['audio_seconds_per_s']:.2f} audio-s/s over "
+        f"{tp['utterances']} utterances")
+    if metrics["requests"] != 2 or metrics["errors"] != 0 or not tp["audio_seconds_per_s"] > 0:
+        fail(f"/metrics: {metrics}")
 
 
 def k5_times(torch, mel_fused) -> dict:
@@ -1497,10 +1762,25 @@ def main() -> None:
     log("[4d] data-parallel path: large-v3, beam 5, int8, fp8 KV, mesh_shape=(2, 1), two ranks on one card")
     per_rank = phase_data_parallel(torch, beam_engine, beam_results)
     k2s["launches"], k2s["launches_per_rank"] = sum(per_rank), per_rank
-    del beam_engine
 
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
+
+    log("[6a] serving: the slot pool, large-v3, greedy, bf16, audio_ctx=None")
+    serve_engine, pools = phase_serving(torch, kernels, EngineConfig, EngineType, create_engine)
+    log("[6b] serving: the async micro-batcher over the flagship (beam 5, int8, fp8 KV)")
+    flagship = phase_async_flagship(torch, kernels, beam, beam_engine)
+    del beam_engine
+    log("[6c] serving: HTTP, continuous mode, over the 6a engine")
+    phase_http(serve_engine)
+    del serve_engine
+    serving = {p["class"]: p for p in pools}
+    serving["AsyncTranscriber"] = flagship
+    log(f"serving record: {json.dumps(serving)}")
+    k1["serving_launches"] = {name: rec["k1"] for name, rec in serving.items()}
+    k2["serving_launches"] = {name: rec.get("k2", 0) for name, rec in serving.items()}
+    for rec in (k2s, k3, k4, k5):
+        rec["serving_launches"] = {name: 0 for name in serving}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))

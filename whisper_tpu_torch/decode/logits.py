@@ -11,14 +11,17 @@ mask on the [B, V] logits:
   steps in, and a timestamp is forced when the total timestamp probability
   beats the best text token.
 
-The position being sampled is shared by all rows here (the JAX version
-also takes one position per row, for continuous batching).
+The position being sampled is either shared by all rows (a Python
+``int``: the greedy and beam loops) or one per row (a ``[B]`` tensor: the
+slot pool of ``decode/continuous.py``, where every slot decodes at its own
+depth), as in the JAX version. The two forms give the same logits; the
+per-row form replaces the position branches with ``torch.where``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,25 +80,35 @@ class LogitRules:
         self,
         logits: torch.Tensor,  # [B, V] float32
         tokens: torch.Tensor,  # [B, L] token buffer (read by timestamp rules)
-        pos: int,  # position being sampled, shared by all rows
+        pos: Union[int, torch.Tensor],  # position being sampled: an int
+        # shared by all rows, or [B] integers, one per row
         sample_begin: int,  # first sampled position
     ) -> torch.Tensor:
         logits = logits + self._bias("static_bias", logits.device)
-        if pos == sample_begin:
+        if isinstance(pos, torch.Tensor):
+            is_first = (pos == sample_begin)[:, None]
+            logits = logits + torch.where(is_first, self._bias("blank_bias", logits.device), 0.0)
+        elif pos == sample_begin:
             logits = logits + self._bias("blank_bias", logits.device)
         if self.timestamps:
             logits = self._timestamp_rules(logits, tokens, pos, sample_begin)
         return logits
 
     # --- timestamp grammar --------------------------------------------------
-    def _timestamp_rules(self, logits, tokens, pos: int, sample_begin: int):
+    def _timestamp_rules(self, logits, tokens, pos, sample_begin: int):
         beg, eot = self.beg, self.eot
         ids = torch.arange(self.n_vocab, device=logits.device)[None, :]
         is_ts = ids >= beg
         is_text = ids < eot  # excludes eot and all specials/timestamps
+        per_row = isinstance(pos, torch.Tensor)
 
-        last = tokens[:, max(pos - 1, 0)]
-        penult = tokens[:, max(pos - 2, 0)]
+        if per_row:
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+            last = tokens[rows, torch.clamp_min(pos - 1, 0)]
+            penult = tokens[rows, torch.clamp_min(pos - 2, 0)]
+        else:
+            last = tokens[:, max(pos - 1, 0)]
+            penult = tokens[:, max(pos - 2, 0)]
         last_was_ts = (last >= beg) & (pos - 1 >= sample_begin)
         penult_was_ts = (penult >= beg) & (pos - 2 >= sample_begin)
 
@@ -107,7 +120,7 @@ class LogitRules:
 
         # Monotonicity: timestamps never decrease. Largest timestamp so far:
         cols = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        sampled_mask = (cols < pos) & (tokens >= beg)
+        sampled_mask = (cols < (pos[:, None] if per_row else pos)) & (tokens >= beg)
         max_ts = torch.where(sampled_mask, tokens, beg - 1).amax(dim=1)  # [B]
         bias = bias + torch.where(
             is_ts & (ids < torch.clamp_min(max_ts, beg)[:, None]), NEG_INF, 0.0
@@ -115,11 +128,14 @@ class LogitRules:
 
         # First sampled token must be a timestamp, capped at the initial max;
         # EOT stays legal there.
-        if pos == sample_begin:
+        if per_row or pos == sample_begin:
             first_bias = torch.where(~is_ts, NEG_INF, 0.0) + torch.where(
                 ids > beg + self.max_initial_timestamp_index, NEG_INF, 0.0
             )
-            bias = bias + torch.where(ids == eot, 0.0, first_bias)
+            first_bias = torch.where(ids == eot, 0.0, first_bias)
+            if per_row:
+                first_bias = torch.where((pos == sample_begin)[:, None], first_bias, 0.0)
+            bias = bias + first_bias
 
         logits = logits + bias
 

@@ -57,6 +57,7 @@ from whisper_tpu_torch.parallel.multihost import (
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
+from whisper_tpu_torch.utils.profiling import StageTimer, Throughput
 
 
 class EngineType(enum.IntEnum):
@@ -242,6 +243,10 @@ class Engine:
             self._logit_bias = torch.from_numpy(lb).to(self.device)
         else:
             self._logit_bias = None
+        # Stage times and throughput counters (utils/profiling.py), recorded
+        # by transcribe_batch and read by the HTTP server's /metrics.
+        self.timer = StageTimer()
+        self.throughput = Throughput()
 
     # --- stages ------------------------------------------------------------
     def _encode(self, batch: np.ndarray, audio_ctx: Optional[int]) -> torch.Tensor:
@@ -257,20 +262,22 @@ class Engine:
             enc_out = enc_out[:, :audio_ctx]
         return enc_out
 
-    def _make_prompts(self, enc_out: torch.Tensor):
-        """Batch prompts: the static template, with the language slot filled
-        by detection when autodetecting. Returns (prompts [B, P], cross_kv or
-        None); detection's cross-KV is shared with the decode."""
+    def _make_prompts(self, params: Params, enc_out: torch.Tensor):
+        """Batch prompts on ``enc_out``'s device: the static template, with
+        the language slot filled by detection when autodetecting. Returns
+        (prompts [B, P], cross_kv or None); detection's cross-KV is shared
+        with the decode. ``params`` are the engine's, or their replica on
+        a disaggregated encoder's device."""
         b = enc_out.shape[0]
-        prompts = torch.from_numpy(self._prompt).to(self.device, torch.long)
+        prompts = torch.from_numpy(self._prompt).to(enc_out.device, torch.long)
         prompts = prompts[None, :].repeat(b, 1)
         if not self._autodetect:
             return prompts, None
         cross_kv = precompute_cross_kv(
-            self.assets.params, enc_out, self.dims, kv_dtype=self._kv_dtype
+            params, enc_out, self.dims, kv_dtype=self._kv_dtype
         )
         lang_toks = detect_language_tokens(
-            self.assets.params,
+            params,
             enc_out,
             self.dims,
             sot=self.vocab.specials.sot,
@@ -284,7 +291,7 @@ class Engine:
         """Greedy or beam decode → (tokens, lengths, avg_logprob or None,
         no_speech probs or None). Beam rows report their length-normalised
         score as avg_logprob."""
-        prompts, cross_kv = self._make_prompts(enc_out)
+        prompts, cross_kv = self._make_prompts(self.assets.params, enc_out)
         ns = (
             (self._sot_index, self.vocab.specials.nospeech)
             if self.config.no_speech_threshold is not None
@@ -409,10 +416,19 @@ class Engine:
     ) -> List[TranscriptionResult]:
         """On a mesh every rank passes the whole batch, decodes its share
         and returns every row's result."""
-        batch, b, _n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
+        batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
         ac = self._resolve_audio_ctx(batch)
         rows = batch if self.mesh is None else self.mesh.local_rows(batch)
         tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(rows, ac)
+        if mel_ms:
+            self.timer.record("mel", mel_ms / 1e3)
+        self.timer.record("model", model_ms / 1e3)
+        self.throughput.add(
+            audio_seconds=b * (n / 16_000.0),
+            tokens=int(np.sum(lengths[:b])),
+            utterances=b,
+            wall_s=((mel_ms or 0.0) + model_ms) / 1e3,
+        )
         return [
             self.result_from_tokens(
                 tokens[i], int(lengths[i]), omit_special_tokens,

@@ -2,12 +2,14 @@
 
 Counterpart of ``whisper_tpu/models/decoder.py``: ``init_kv_cache``,
 ``precompute_cross_kv``, ``_decoder_forward`` for a shared (scalar)
-position with beam widths, ``decoder_prefill``, ``decoder_step``, and the
+position with beam widths or per-row positions (T = 1, the slot pool of
+``decode/continuous.py``), ``decoder_prefill``, ``decoder_step``, and the
 beam step modes: ``plane_cache_from_prefill`` + ``decoder_step_fused``
 ("hybrid", through K2, or K2′ on a rank of a data-parallel mesh) and
-``init_lineage`` + ``decoder_step_lineage`` ("lineage"). Per-row positions, ``merged_read``, ``decoder_window`` and the
-segment-growth helpers (``grow_plane_cache``, ``grow_lineage``) are not
-ported: the port preallocates one cache of ``p_len + max_new`` positions.
+``init_lineage`` + ``decoder_step_lineage`` ("lineage"). ``merged_read``,
+``decoder_window`` and the segment-growth helpers (``grow_plane_cache``,
+``grow_lineage``) are not ported: the port preallocates one cache of
+``p_len + max_new`` positions.
 
 Layouts are the JAX ones: self-attention cache ``{"k"/"v": [L, B, ctx, H,
 Dh]}``, cross-attention K/V ``{"k"/"v": [L, B, H, Dh, n_audio_ctx]}``
@@ -23,12 +25,14 @@ self-attention cache write and read. That read is one
 mask (a causal mask for the prefill, an ancestry bias for lineage): the rows JAX reads
 past it carry mask -1e30 and weigh exactly 0 in f32. So the eager step
 after a cache reorder and the hybrid step run the same arithmetic on the
-same bytes, and their logits are bitwise equal on any device.
+same bytes, and their logits are bitwise equal on any device. With
+per-row positions the rows end at different depths, so the read covers
+the whole cache under a per-row mask, as JAX's does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -87,6 +91,39 @@ def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype) -> t
     return (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos:end]).to(compute_dtype)
 
 
+def scatter_rows(dst: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``dst[b, pos[b]] = new[b]`` for every row b, cast to ``dst``'s dtype,
+    in place. ``dst`` [B, ctx, ...] (last dim contiguous), ``pos`` [B]
+    int64, ``new`` [B, ...]. The write goes through byte views of both
+    sides: the same bytes for every dtype, fp8 included, where CUDA's
+    ``index_put_`` may lack a float8 kernel."""
+    rows = torch.arange(dst.shape[0], device=dst.device)
+    dst.view(torch.uint8)[rows, pos] = new.to(dst.dtype).contiguous().view(torch.uint8)
+
+
+def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype):
+    """The per-row form of :func:`_decoder_forward` (T = 1): row ``b``'s
+    token sits at ``pos[b]``. The embedding gathers each row's position;
+    each row's new K/V is written at its own position by index; the read
+    covers the whole cache, and a per-row mask leaves keys at positions
+    ``<= pos[b]``, as JAX's per-row branch does. Positions must lie in the
+    cache (the slot pool clamps its inactive rows')."""
+    if tokens.shape[1] != 1:
+        raise ValueError("per-row positions take one token per row (T = 1)")
+    ctx = cache["k"].shape[2]
+    pos = pos.to(device=tokens.device, dtype=torch.long)
+    x = (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos][:, None]).to(compute_dtype)
+    k_pos = torch.arange(ctx, device=x.device)[None, :]
+    mask = torch.where(k_pos <= pos[:, None], 0.0, NEG_INF).to(compute_dtype)[:, None, None, :]
+
+    def self_kv(layer, q, k_new, v_new):
+        scatter_rows(cache["k"][layer], pos, k_new[:, 0])
+        scatter_rows(cache["v"][layer], pos, v_new[:, 0])
+        return q, cache["k"][layer], cache["v"][layer], mask
+
+    return _layers(dec, x, dims.n_text_head, cross_kv, 1, self_kv), cache
+
+
 def _cross_block(bp, x, n_head, xk_l, xv_l, beam_width: int) -> torch.Tensor:
     """Residual cross-attention over precomputed encoder K/V. Beams fold
     into the query-row axis: [B·K, T, H, Dh] → [B, K·T, H, Dh] against
@@ -122,7 +159,8 @@ def _layers(dec, x, n_head, cross_kv, beam_width: int, self_kv) -> torch.Tensor:
 def _decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int64
-    pos_offset: int,  # absolute position of tokens[:, 0], shared by all rows
+    pos_offset: Union[int, torch.Tensor],  # absolute position of tokens[:, 0]:
+    # an int shared by all rows, or [B] integers, one per row (T = 1)
     cache: KVCache,
     cross_kv: KVCache,
     dims: ModelDims,
@@ -135,9 +173,14 @@ def _decoder_forward(
     the positions JAX leaves unmasked. The rows JAX reads past them carry
     mask -1e30 and weigh exactly 0 in f32, so the result is the same.
     ``beam_width=K``: the batch axis is a folded [B·K] beam axis while
-    ``cross_kv`` stays at batch B (see :func:`_cross_block`).
+    ``cross_kv`` stays at batch B (see :func:`_cross_block`). A ``[B]``
+    tensor ``pos_offset`` takes :func:`_rows_forward`.
     Returns (logits [B, T, n_vocab] float32, cache)."""
     dec = params["decoder"]
+    if isinstance(pos_offset, torch.Tensor):
+        if beam_width != 1:
+            raise ValueError("per-row positions decode one hypothesis per row")
+        return _rows_forward(dec, tokens, pos_offset, cache, cross_kv, dims, compute_dtype)
     t = tokens.shape[1]
     end = pos_offset + t
     if end > cache["k"].shape[2]:
@@ -178,7 +221,7 @@ def decoder_prefill(
 def decoder_step(
     params: Params,
     token: torch.Tensor,  # [B] — token at absolute position `pos`
-    pos: int,
+    pos: Union[int, torch.Tensor],  # shared int, or [B] per-row positions
     cache: KVCache,
     cross_kv: KVCache,
     dims: ModelDims,
@@ -188,8 +231,10 @@ def decoder_step(
     """One autoregressive step. ``beam_width=K``: the token and cache batch
     axis is [B·K] while ``cross_kv`` stays at B. Returns (logits [B, V],
     cache)."""
+    if not (isinstance(pos, torch.Tensor) and pos.ndim == 1):
+        pos = int(pos)
     logits, cache = _decoder_forward(
-        params, token[:, None], int(pos), cache, cross_kv, dims, compute_dtype,
+        params, token[:, None], pos, cache, cross_kv, dims, compute_dtype,
         beam_width=beam_width,
     )
     return logits[:, 0, :], cache
