@@ -75,7 +75,13 @@ Phases, in order; any failure exits non-zero before the last line:
    utterances: slots reused), ``DisaggregatedTranscriber`` and
    ``AsyncTranscriber`` must each give tokens equal to ``engine.transcribe``
    on the card and to the same class on the CPU; the slot pool with the fp8
-   KV cache (its per-row byte scatter) card against CPU.
+   KV cache (its per-row byte scatter) card against CPU. And the options of
+   PR 9, card against CPU: tokens through the sampler at T = 0 (a ladder
+   with both gates off) equal on both and to the argmax path's; words of
+   ``word_timestamps=True`` (over a vocab whose ids from 256 up are each a
+   word) equal; ``transcribe_sequential`` of 35 s: tokens and segments
+   equal. (The noise of T > 0 is the device's own stream: Philox on the
+   card, MT19937 on the CPU, so sampled tokens are not compared.)
 6. Serving at full width, large-v3 (``engine/serving.py``,
    ``engine/http_server.py``):
 6a. The slot pool: greedy bf16, ``audio_ctx=None``, phase 4's weights,
@@ -95,6 +101,28 @@ Phases, in order; any failure exits non-zero before the last line:
    6a engine: one WAV and one raw-PCM POST, each response's text equal to
    the same slot pool's result for that audio; ``/metrics`` reports 2
    requests, 0 errors and a non-zero throughput.
+
+7. The options of ``transcribe`` at full width, large-v3, phase 4's and 4b's
+   weights; every launch count set to 0 just before each sub-phase and
+   checked exactly just after it:
+7a. Greedy bf16 with the default ladder (0.0, 0.2, …, 1.0) and the default
+   gates on phase 4's 4 utterances, 64-token budget: every temperature in
+   the schedule, the runs (one encode each) matching the kept temperatures,
+   rows retried per attempt printed; K1 32 × the encodes, K2, K2′, K3, K4,
+   K5 never. Then the ladder with both gates off: one run through the
+   sampler at T = 0, tokens equal to phase 4's.
+7b. The flagship (beam 5, int8, fp8 KV, "auto") with the same ladder: K2
+   32 × the beam steps of the primary (the retries sample), K1 as in 7a.
+7c. ``word_timestamps=True`` on phase 4's batch (a vocab whose ids from
+   256 up are each a word): tokens equal to phase 4's, K1 32 (the
+   alignment forward reuses the primary's encoder output), words ordered
+   within [0, 30 s] (the DTW spans the batch's frames, as in JAX); the
+   alignment forward's ms and the DTW's host ms per row; then the 4 s
+   utterance alone: its words within [0, 4 s].
+7d. ``transcribe_long`` of 75 s of synthetic bursts and near-silence (VAD
+   chunks in one batch: K1 32), offsets increasing; ``transcribe_sequential``
+   of 35 s with a 16-token budget and language detection: at most 35
+   windows, K1 32 × (windows + 1), segments ordered.
 
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -327,17 +355,26 @@ def mel_bound(b: int, n_mels: int, filt_nnz: int) -> dict:
     return {"ms": bound, "by": by, "gflop": float(flops) / 1e9}
 
 
-def kernels_per_call(torch, fn) -> list:
+def kernels_per_call(torch, fn, traces: int = 3) -> list:
     """The names of the device kernels one call of ``fn`` launches, from a
-    ``torch.profiler`` trace of that call alone."""
+    ``torch.profiler`` trace of that call alone. A trace that holds no
+    device event at all recorded nothing (the profiler at times returns an
+    empty trace right after another session): it is taken again, up to
+    ``traces`` times, and an empty list comes back only if every trace was
+    empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm: libraries loaded, allocator primed
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        log("  (the profiler's trace held no device event: taken again)")
+    return names
 
 
 def _k2_rows(torch, gen, bk, hd):
@@ -1134,7 +1171,9 @@ def reset_counts(*modules) -> None:
             m.sharded_launches = 0
 
 
-def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> int:
+def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> tuple:
+    """Greedy main path (docstring, phase 4). Returns K1's launches, the
+    engine and its batch's results."""
     from whisper_tpu_torch.audio.wav import write_wav
 
     attention, fused_step, gather, gather_attend, mel_fused = kernels
@@ -1194,7 +1233,7 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     log(f"  K1 launches on the main path: {launches} ({encodes} encodes × {dims.n_audio_layer} layers)")
     if dims.n_audio_layer != LARGE_V3_ENC_LAYERS or launches != expected:
         fail(f"K1 launched {launches} times, expected {expected}")
-    return launches
+    return launches, engine, results
 
 
 def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engine) -> tuple:
@@ -1488,7 +1527,40 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
         log(f"  beam 3, DP(2) on the card, {mode}: both ranks equal to cpu off "
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
 
+    phase_options_card_vs_cpu(params, cfg, x, Monolith)
     phase_serving_card_vs_cpu(torch, params, cfg, Monolith)
+
+
+def phase_options_card_vs_cpu(params, cfg, x, Monolith) -> None:
+    """Phase 5's part for the options of PR 9 (docstring): the sampling path
+    at T = 0, word timestamps and ``transcribe_sequential``, card == CPU."""
+    runs = {}
+    ladder = dataclasses.replace(cfg, fallback_temperatures=(0.5,), logprob_threshold=None,
+                                 compression_ratio_threshold=None)
+    words = dataclasses.replace(cfg, word_timestamps=True)
+    vocab = word_vocab(Monolith.from_assets(params, cfg, device="cpu").vocab, cfg.dims().n_vocab)
+    y = synthetic_utterance(35.0, 7)
+    for device in ("cuda", "cpu"):
+        runs[device, "plain"] = Monolith.from_assets(params, cfg, device=device).transcribe_batch(x)
+        runs[device, "ladder"] = Monolith.from_assets(params, ladder, device=device).transcribe_batch(x)
+        runs[device, "words"] = Monolith.from_assets(params, words, vocab=vocab, device=device).transcribe_batch(x)
+        runs[device, "sequential"] = [Monolith.from_assets(params, cfg, device=device).transcribe_sequential(y)]
+    for a, b, p in zip(runs["cuda", "ladder"], runs["cpu", "ladder"], runs["cuda", "plain"]):
+        if not (_same_tokens(a, b) and _same_tokens(a, p)) or (a.temperature, b.temperature) != (0.0, 0.0):
+            fail("tiny f32: the sampling path at T = 0 differs between card, CPU and the argmax path")
+    log("  sampling path at T = 0: card == CPU == the argmax path's tokens")
+    for a, b in zip(runs["cuda", "words"], runs["cpu", "words"]):
+        wa, wb = ([(w.word, w.start, w.end) for w in r.words] for r in (a, b))
+        log(f"  words, card: {len(wa)}, first {wa[:4]}")
+        if not _same_tokens(a, b) or wa != wb:
+            fail(f"tiny f32 word timestamps: card {wa} differ from the CPU's {wb}")
+    log("  word timestamps: card == CPU")
+    (a,), (b,) = runs["cuda", "sequential"], runs["cpu", "sequential"]
+    segs = [(s.start, s.end) for s in a.segments]
+    log(f"  transcribe_sequential 35 s: {a.length} tokens, segments {segs}")
+    if a.tokens.tolist() != b.tokens.tolist() or segs != [(s.start, s.end) for s in b.segments]:
+        fail("tiny f32 transcribe_sequential: card tokens or segments differ from the CPU's")
+    log("  transcribe_sequential: card == CPU")
 
 
 SERVING_LENGTHS_S = (2.0, 4.5, 7.0, 9.5, 12.0, 14.5, 17.0, 19.5, 22.0, 24.5, 27.0, 30.0)
@@ -1666,6 +1738,202 @@ def phase_http(engine) -> None:
         fail(f"/metrics: {metrics}")
 
 
+class _Spy:
+    """Records the calls of one engine method (``_run``: one encode each;
+    ``_seq_window``: one sequential window each) while the ``with`` lasts."""
+
+    def __init__(self, engine, name: str):
+        self.engine, self.name, self.calls = engine, name, []
+
+    def __enter__(self):
+        inner = getattr(self.engine, self.name)
+
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return inner(*args, **kw)
+
+        setattr(self.engine, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.engine, self.name)
+
+
+def _counts(kernels, beam) -> dict:
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    return {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
+            "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
+            "beam_steps": beam.steps}
+
+
+def _expect(label: str, got: dict, want: dict) -> None:
+    """Every kernel's launches as ``want`` says (0 where it says nothing)."""
+    bad = {k: (got[k], want.get(k, 0)) for k in ("K1", "K2", "K2′", "K3", "K4", "K5")
+           if got[k] != want.get(k, 0)}
+    if bad:
+        fail(f"{label}: launches (got, expected) {bad}")
+
+
+def _engine_with(engine, **changes):
+    """An engine over ``engine``'s weights (already on the card) with
+    config ``changes``."""
+    return type(engine)(engine.assets, dataclasses.replace(engine.config, **changes), device=engine.device)
+
+
+def _timed(torch, kernels, beam, fn) -> tuple:
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, on a synchronised host clock → (result, wall s, counts)."""
+    torch.cuda.synchronize()
+    reset_counts(*kernels)  # counts start here
+    beam.steps = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, _counts(kernels, beam)  # counts end here
+
+
+def phase_ladder(torch, kernels, beam, engine, label) -> dict:
+    """Phases 7a and 7b (docstring): ``engine``'s config with the default
+    ladder and gates on phase 4's batch. K1 once per layer of every
+    encode (the primary and each retry sub-batch), K2 once per layer of
+    every beam step (a beam primary's only: the retries sample)."""
+    from whisper_tpu_torch.decode.fallback import DEFAULT_TEMPERATURES
+
+    _, batch, audio_s = main_path_batch()
+    eng = _engine_with(engine, fallback_temperatures=DEFAULT_TEMPERATURES[1:])
+    with _Spy(eng, "_run") as spy:
+        results, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
+    check_results(results, eng, eng.dims.n_vocab)
+    temps = [r.temperature for r in results]
+    if any(t not in DEFAULT_TEMPERATURES for t in temps):
+        fail(f"{label}: temperatures {temps} outside the schedule {DEFAULT_TEMPERATURES}")
+    runs = [(args[0].shape[0], kw.get("temperature")) for args, kw in spy.calls]
+    attempts = 1 + max(DEFAULT_TEMPERATURES.index(t) for t in temps)
+    retried = [sum(DEFAULT_TEMPERATURES.index(t) >= k for t in temps) for k in range(1, attempts)]
+    log(f"  {label}: {len(results)} utterances ({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms "
+        f"→ {audio_s / wall:.2f} audio-s/s; temperatures {temps}")
+    log(f"    runs (padded rows, temperature): {runs}; rows retried per attempt {retried}; "
+        f"avg_logprob {[round(r.avg_logprob, 3) for r in results]}; compression ratio "
+        f"{[round(r.compression_ratio, 3) for r in results]}")
+    log(f"    launches: {n} ({len(runs)} encodes × {LARGE_V3_ENC_LAYERS}, {n['beam_steps']} beam steps × "
+        f"{LARGE_V3_DEC_LAYERS})")
+    if len(runs) != attempts or [t for _, t in runs[1:]] != list(DEFAULT_TEMPERATURES[1:attempts]):
+        fail(f"{label}: runs {runs} do not match the kept temperatures {temps}")
+    beam_primary = eng.config.beam_size > 1
+    if beam_primary != (runs[0][1] is None) or (beam_primary and n["beam_steps"] == 0):
+        fail(f"{label}: primary run {runs[0]} with {n['beam_steps']} beam steps")
+    _expect(label, n, {"K1": LARGE_V3_ENC_LAYERS * len(runs), "K2": LARGE_V3_DEC_LAYERS * n["beam_steps"]})
+    return {"audio_s_per_s": audio_s / wall, "wall_s": wall, "temperatures": temps, "runs": runs,
+            "retried_per_attempt": retried, "launches": n}
+
+
+def phase_ladder_gates_off(torch, kernels, beam, engine, phase4_results) -> dict:
+    """Phase 7a's second run: the ladder with both gates off, so the
+    primary runs through the sampler at T = 0: tokens equal phase 4's."""
+    from whisper_tpu_torch.decode.fallback import DEFAULT_TEMPERATURES
+
+    _, batch, audio_s = main_path_batch()
+    eng = _engine_with(engine, fallback_temperatures=DEFAULT_TEMPERATURES[1:],
+                       compression_ratio_threshold=None, logprob_threshold=None)
+    results, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
+    log(f"  7a, gates off: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; launches {n}")
+    _expect("7a gates off", n, {"K1": LARGE_V3_ENC_LAYERS})
+    for a, b in zip(results, phase4_results):
+        if a.temperature != 0.0 or not _same_tokens(a, b):
+            fail(f"7a gates off: T {a.temperature}, tokens {a.tokens[: a.length].tolist()} differ from "
+                 f"phase 4's {b.tokens[: b.length].tolist()}")
+    log("    tokens through the sampler at T = 0 equal phase 4's")
+    return {"audio_s_per_s": audio_s / wall, "wall_s": wall, "launches": n}
+
+
+def word_vocab(vocab, n_vocab: int):
+    """``vocab`` with every id from 256 up to EOT surfaced as a word of its
+    own (a leading space). The synthetic vocab's own surfaces there start
+    no word, so each row of random weights would be one word. The suppress
+    rules read only the byte tokens and the specials, which stay, so the
+    decode's tokens do not change."""
+    from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
+
+    table = {i: vocab.surface(i) if i < 256 else b" w%d" % i for i in range(vocab.specials.eot)}
+    return Vocab(table, multilingual=vocab.multilingual, n_vocab=vocab.n_vocab,
+                 num_languages=num_languages_for(n_vocab))
+
+
+def phase_words(torch, kernels, beam, engine, phase4_results) -> dict:
+    """Phase 7c (docstring): ``word_timestamps=True`` on phase 4's batch,
+    then on its shortest utterance alone."""
+    utts, batch, audio_s = main_path_batch()
+    assets = dataclasses.replace(engine.assets, vocab=word_vocab(engine.vocab, engine.dims.n_vocab))
+    eng = type(engine)(assets, dataclasses.replace(engine.config, word_timestamps=True), device=engine.device)
+    results, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
+    stages = eng.timer.summary()
+    align_ms, dtw_ms = stages["align"].last_s * 1e3, stages["dtw"].last_s * 1e3 / len(results)
+    window_s = max(LENGTHS_S)  # the batch's frames: JAX sizes the DTW by the longest row
+    log(f"  7c: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; alignment forward {align_ms:.1f} ms "
+        f"for the batch of {len(results)}, DTW {dtw_ms:.1f} ms of host time per row; launches {n}")
+    _expect("7c", n, {"K1": LARGE_V3_ENC_LAYERS})  # the primary's encoder output is reused
+    for r, ref, dur in zip(results, phase4_results, LENGTHS_S):
+        if not _same_tokens(r, ref):
+            fail("7c: word timestamps changed the tokens")
+        times = [(w.start, w.end) for w in r.words]
+        log(f"    {dur:.1f} s: {len(r.words)} words, first {times[:3]}, "
+            f"{sum(e <= dur for _, e in times)} end within the utterance")
+        if not r.words or any(not 0.0 <= s <= e <= window_s for s, e in times) or times != sorted(times):
+            fail(f"7c: word times {times} unordered or outside [0, {window_s}]")
+    single, wall1, n1 = _timed(torch, kernels, beam, lambda: eng.transcribe(utts[0]))
+    times = [(w.start, w.end) for w in single.words]
+    log(f"  7c, the {LENGTHS_S[0]:.1f} s utterance alone: {len(times)} words {times[:4]}...; "
+        f"{wall1 * 1e3:.1f} ms; launches {n1}")
+    _expect("7c single", n1, {"K1": LARGE_V3_ENC_LAYERS})
+    if not times or any(not 0.0 <= s <= e <= LENGTHS_S[0] for s, e in times) or times != sorted(times):
+        fail(f"7c single: word times {times} unordered or outside [0, {LENGTHS_S[0]}]")
+    return {"audio_s_per_s": audio_s / wall, "wall_s": wall, "align_ms": align_ms,
+            "dtw_host_ms_per_row": dtw_ms, "launches": n}
+
+
+def bursts_and_silences(seconds: float, bursts, seed: int) -> np.ndarray:
+    """``seconds`` of near-silence (noise at 1e-3) with synthetic speech at
+    the ``(start_s, length_s)`` bursts."""
+    rng = np.random.default_rng(seed)
+    x = (1e-3 * rng.standard_normal(int(16_000 * seconds))).astype(np.float32)
+    for i, (start, length) in enumerate(bursts):
+        u = synthetic_utterance(length, seed + i)
+        x[int(16_000 * start) : int(16_000 * start) + len(u)] += u
+    return x
+
+
+LONG_BURSTS = ((2.0, 8.0), (15.0, 10.0), (35.0, 6.0), (48.0, 12.0), (66.0, 7.0))
+
+
+def phase_long_form(torch, kernels, beam, engine) -> dict:
+    """Phase 7d (docstring)."""
+    x = bursts_and_silences(75.0, LONG_BURSTS, 60)
+    long, wall, n = _timed(torch, kernels, beam, lambda: engine.transcribe_long(x))
+    log(f"  7d transcribe_long: 75.0 s in {wall * 1e3:.1f} ms → {75.0 / wall:.2f} audio-s/s; "
+        f"{len(long.chunks)} chunks at {long.offsets} s; launches {n}")
+    check_results(long.chunks, engine, engine.dims.n_vocab)
+    if len(long.chunks) < 2 or long.offsets != sorted(set(long.offsets)):
+        fail(f"7d transcribe_long: chunks at {long.offsets}")
+    _expect("7d transcribe_long", n, {"K1": LARGE_V3_ENC_LAYERS})  # one batch, one encode
+
+    seq_engine = _engine_with(engine, max_new_tokens=16)
+    y = synthetic_utterance(35.0, 61)
+    with _Spy(seq_engine, "_seq_window") as spy:
+        seq, wall_s, n_s = _timed(torch, kernels, beam, lambda: seq_engine.transcribe_sequential(y))
+    windows = len(spy.calls)
+    starts = [s.start for s in seq.segments]
+    log(f"  7d transcribe_sequential: 35.0 s, {windows} windows in {wall_s * 1e3:.1f} ms → "
+        f"{35.0 / wall_s:.2f} audio-s/s; language {seq.language}, {seq.length} text tokens, "
+        f"{len(seq.segments)} segments; launches {n_s}")
+    if not 1 <= windows <= 35 or starts != sorted(starts) or not seq.language:
+        fail(f"7d transcribe_sequential: {windows} windows, segment starts {starts}")
+    _expect("7d transcribe_sequential", n_s, {"K1": LARGE_V3_ENC_LAYERS * (windows + 1)})  # + detection
+    return {"long_audio_s_per_s": 75.0 / wall, "long_chunks": len(long.chunks), "long_launches": n,
+            "sequential_windows": windows, "sequential_wall_s": wall_s,
+            "sequential_audio_s_per_s": 35.0 / wall_s, "sequential_launches": n_s}
+
+
 def k5_times(torch, mel_fused) -> dict:
     """K5 on the main path's batch ([4, 480000], 128 mels): the kernel
     alone and with its epilogue, device time, and the wrapper's host time
@@ -1747,7 +2015,7 @@ def main() -> None:
     k5 = phase_mel_fused(torch, mel_fused)
 
     log("[4] main path: large-v3, greedy, bf16, language detection")
-    k1["launches"] = phase_main_path(
+    k1["launches"], main_engine, main_results = phase_main_path(
         torch, kernels, EngineConfig, EngineType, create_engine
     )
 
@@ -1770,7 +2038,6 @@ def main() -> None:
     serve_engine, pools = phase_serving(torch, kernels, EngineConfig, EngineType, create_engine)
     log("[6b] serving: the async micro-batcher over the flagship (beam 5, int8, fp8 KV)")
     flagship = phase_async_flagship(torch, kernels, beam, beam_engine)
-    del beam_engine
     log("[6c] serving: HTTP, continuous mode, over the 6a engine")
     phase_http(serve_engine)
     del serve_engine
@@ -1781,6 +2048,27 @@ def main() -> None:
     k2["serving_launches"] = {name: rec.get("k2", 0) for name, rec in serving.items()}
     for rec in (k2s, k3, k4, k5):
         rec["serving_launches"] = {name: 0 for name in serving}
+
+    t7 = time.perf_counter()
+    log("[7a] the fallback ladder: large-v3 greedy bf16, default ladder and gates (phase 4's weights)")
+    options = {"7a": phase_ladder(torch, kernels, beam, main_engine, "7a")}
+    options["7a_gates_off"] = phase_ladder_gates_off(torch, kernels, beam, main_engine, main_results)
+    log("[7b] the fallback ladder over the flagship: beam 5 primary, sampling retries (phase 4b's weights)")
+    options["7b"] = phase_ladder(torch, kernels, beam, beam_engine, "7b")
+    del beam_engine
+    log("[7c] word timestamps: large-v3 greedy bf16 on phase 4's batch")
+    options["7c"] = phase_words(torch, kernels, beam, main_engine, main_results)
+    log("[7d] long form: transcribe_long (VAD chunks) and transcribe_sequential (seek loop)")
+    options["7d"] = phase_long_form(torch, kernels, beam, main_engine)
+    del main_engine
+    log(f"options record: {json.dumps(options)}; phase 7 took {time.perf_counter() - t7:.1f} s")
+    names = ("K1", "K2", "K2′", "K3", "K4", "K5")
+    for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5)):
+        rec["options_launches"] = {
+            "7a": options["7a"]["launches"][name], "7b": options["7b"]["launches"][name],
+            "7c": options["7c"]["launches"][name], "7d_long": options["7d"]["long_launches"][name],
+            "7d_sequential": options["7d"]["sequential_launches"][name],
+        }
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))

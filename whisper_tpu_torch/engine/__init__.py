@@ -2,6 +2,7 @@ from whisper_tpu_torch.engine.engine import (
     EncDec,
     Engine,
     EngineType,
+    LongTranscriptionResult,
     Monolith,
     TranscriptionResult,
     create_engine,
@@ -14,4 +15,5 @@ __all__ = [
     "EncDec",
     "create_engine",
     "TranscriptionResult",
+    "LongTranscriptionResult",
 ]

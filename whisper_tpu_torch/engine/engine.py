@@ -11,6 +11,26 @@ eagerly, so the two engine kinds differ only in what they time:
 ``Monolith`` reports the whole run as ``model_ms``; ``EncDec`` reports the
 frontend and encoder as ``mel_ms`` and the decode as ``model_ms``.
 
+On top of that one run, as in JAX:
+
+* **the temperature fallback ladder** (``temperature``,
+  ``fallback_temperatures``, the two quality gates of
+  ``decode/fallback.py``): rows that fail a gate are decoded again, as
+  one bucketed sub-batch, at the next temperature through the sampler of
+  ``decode/greedy.py``; the last attempt is kept. Each attempt of each
+  call draws from a fresh ``torch.Generator`` on the engine's device,
+  seeded from ``(sampling_seed, attempt, rank)``: the same engine called
+  twice gives the same tokens. The noise stream is the device's (Philox
+  on CUDA, MT19937 on the CPU), not JAX's;
+* **word timestamps** (``word_timestamps=True``): one teacher-forced
+  alignment forward per ``transcribe_batch`` on the final tokens
+  (``decode/align.py``), over the primary run's encoder output (the same
+  rows of the same padded batch: JAX's separate program encodes them again
+  to the same values), then the DTW on the host;
+* **long form**: :meth:`Engine.transcribe_long` (VAD chunks of ≤ 30 s
+  as one batch) and :meth:`Engine.transcribe_sequential` (openai's seek
+  loop with previous-text conditioning, ``decode/sequential.py``).
+
 ``mesh_shape=(d, 1)`` runs the engine as one rank of a data-parallel
 world of d processes (``parallel/``, over gloo): each rank encodes and
 decodes its contiguous share of the batch (beam "hybrid" through K2′), and
@@ -19,7 +39,8 @@ reads on each rank only that rank's files.
 
 Entry points take ``device=`` and default to ``"cuda"``: asking for CUDA
 where there is none raises, and the CPU runs only when asked for. Config
-options outside this slice raise ``NotImplementedError`` at construction.
+options outside the port (speculative decoding, a model axis > 1,
+``initial_prompt`` text) raise ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -27,19 +48,28 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from whisper_tpu_torch.audio.vad import speech_segments
 from whisper_tpu_torch.audio.wav import read_pcm_f32, read_wav, read_wav_legacy
 from whisper_tpu_torch.config import N_SAMPLES, EngineConfig, ModelDims
+from whisper_tpu_torch.decode.align import (
+    alignment_matrix,
+    default_alignment_mask,
+    heads_to_mask,
+    words_from_alignment,
+)
 from whisper_tpu_torch.decode.beam import beam_decode
+from whisper_tpu_torch.decode.fallback import compression_ratio, needs_fallback, normalize_schedule
 from whisper_tpu_torch.decode.greedy import greedy_decode
 from whisper_tpu_torch.decode.language import detect_language_tokens, lang_token_to_code
 from whisper_tpu_torch.decode.logits import make_rules
 from whisper_tpu_torch.decode.prompt import build_prompt
 from whisper_tpu_torch.decode.segments import parse_segments
+from whisper_tpu_torch.decode.sequential import crop_prefix, window_emit_and_advance
 from whisper_tpu_torch.frontend.filters import mel_filterbank
 from whisper_tpu_torch.frontend.mel import log_mel_spectrogram
 from whisper_tpu_torch.models.decoder import precompute_cross_kv
@@ -56,6 +86,7 @@ from whisper_tpu_torch.parallel.multihost import (
 )
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
+from whisper_tpu_torch.tokenizer.languages import lang_code
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
 from whisper_tpu_torch.utils.profiling import StageTimer, Throughput
 
@@ -78,10 +109,25 @@ class TranscriptionResult:
     model_ms: float = 0.0
     no_speech_prob: Optional[float] = None  # <|nospeech|> prob at SOT
     is_silent: bool = False  # no-speech gate fired: text forced empty
-    avg_logprob: Optional[float] = None  # beam: the length-normalised score
+    # beam: the length-normalised score; sampling: mean logprob per
+    # generated token (terminating EOT included)
+    avg_logprob: Optional[float] = None
+    compression_ratio: Optional[float] = None  # zlib repetition gauge (sampling on)
+    temperature: Optional[float] = None  # the temperature of the kept attempt
+    words: Optional[list] = None  # [align.Word] when word_timestamps=True
 
     def clean_text(self) -> str:
         return remove_extra_spaces(self.text)
+
+
+@dataclasses.dataclass
+class LongTranscriptionResult:
+    """Result of :meth:`Engine.transcribe_long`: chunk results in time order
+    with their window offsets (seconds) into the original audio."""
+
+    text: str
+    offsets: List[float]
+    chunks: List[TranscriptionResult]
 
 
 def batch_bucket(b: int) -> int:
@@ -138,10 +184,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _unsupported(config: EngineConfig) -> List[str]:
     """Config options outside the ported slice, by name."""
     out = []
-    if config.temperature != 0 or config.fallback_temperatures:
-        out.append("temperature sampling / fallback_temperatures")
-    if config.word_timestamps:
-        out.append("word_timestamps=True")
     if config.draft_model is not None:
         out.append("draft_model (speculative decoding)")
     if int(np.prod(config.mesh_shape[1:])) > 1:
@@ -243,6 +285,29 @@ class Engine:
             self._logit_bias = torch.from_numpy(lb).to(self.device)
         else:
             self._logit_bias = None
+        # Sampling and the temperature fallback (decode/fallback.py).
+        if config.temperature < 0:
+            raise ValueError("temperature must be >= 0")
+        if config.temperature > 0 and config.beam_size > 1:
+            raise ValueError(
+                "beam search decodes at temperature 0; temperature > 0 "
+                "requires beam_size=1 (openai-whisper semantics: fallback "
+                "retries switch from beam to sampling)"
+            )
+        self._schedule = normalize_schedule(config.temperature, config.fallback_temperatures)
+        # The sampler runs when the primary decode samples (T > 0) or a retry
+        # ladder exists; a beam primary still decodes by beam, and only its
+        # retries sample.
+        self._sampling_on = config.temperature > 0 or len(self._schedule) > 1
+        self._sampling_primary = self._sampling_on and config.beam_size == 1
+        # Word-level timestamps (decode/align.py): the selected heads.
+        self._align_mask = None
+        if config.word_timestamps:
+            self._align_mask = (
+                heads_to_mask(config.alignment_heads, self.dims)
+                if config.alignment_heads is not None
+                else default_alignment_mask(self.dims)
+            )
         # Stage times and throughput counters (utils/profiling.py), recorded
         # by transcribe_batch and read by the HTTP server's /metrics.
         self.timer = StageTimer()
@@ -287,10 +352,21 @@ class Engine:
         prompts[:, self._sot_index + 1] = lang_toks
         return prompts, cross_kv
 
-    def _decode(self, enc_out: torch.Tensor):
-        """Greedy or beam decode → (tokens, lengths, avg_logprob or None,
-        no_speech probs or None). Beam rows report their length-normalised
-        score as avg_logprob."""
+    def _decode(
+        self,
+        enc_out: torch.Tensor,
+        temperature: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Greedy, beam or sampling decode → (tokens, lengths, avg_logprob
+        or None, no_speech probs or None). Beam rows report their
+        length-normalised score as avg_logprob.
+
+        ``temperature`` (with ``generator``) forces the sampler whatever the
+        beam size: openai's fallback semantics, where beam applies at T = 0
+        only and retries sample. Its avg_logprob is the mean logprob per
+        generated token (terminating EOT included), the quantity the
+        fallback's logprob gate reads."""
         prompts, cross_kv = self._make_prompts(self.assets.params, enc_out)
         ns = (
             (self._sot_index, self.vocab.specials.nospeech)
@@ -308,6 +384,14 @@ class Engine:
             kv_cache_dtype=self._kv_dtype,
             no_speech=ns,
         )
+        if temperature is not None:
+            out = greedy_decode(
+                self.assets.params, enc_out, prompts, temperature=temperature,
+                generator=generator, return_logprobs=True, **common,
+            )
+            tokens, lengths, sum_lp = out[:3]
+            generated = (lengths - prompts.shape[1]).clamp(min=1).float()
+            return tokens, lengths, sum_lp / generated, out[3] if ns else None
         if self.config.beam_size > 1:
             out = beam_decode(
                 self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
@@ -317,10 +401,30 @@ class Engine:
         out = greedy_decode(self.assets.params, enc_out, prompts, **common)
         return out[0], out[1], None, out[2] if ns else None
 
-    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
+    def _generator(self, attempt: int) -> torch.Generator:
+        """The noise source of one attempt of one ``transcribe_batch`` call:
+        a fresh generator on the engine's device seeded from
+        ``(sampling_seed, attempt, rank)`` (JAX folds the attempt into
+        ``PRNGKey(sampling_seed)``; the rank keeps the ranks' rows from
+        drawing the same noise)."""
+        rank = self.mesh.data_index if self.mesh is not None else 0
+        seed = np.random.SeedSequence([self.config.sampling_seed, attempt, rank])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0])
+        )
+
+    def _run(
+        self,
+        batch: np.ndarray,
+        audio_ctx: Optional[int],
+        temperature: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """One device run of this rank's rows → (tokens, lengths,
         avg_logprob or None, no_speech probs or None) of every rank's rows
-        on the host (:meth:`_to_host`), plus (mel_ms, model_ms)."""
+        on the host (:meth:`_to_host`), plus (mel_ms, model_ms) and this
+        rank's encoder output (on the device, for the alignment forward).
+        ``temperature`` and ``generator``: see :meth:`_decode`."""
         raise NotImplementedError
 
     def _sync(self) -> None:
@@ -345,10 +449,7 @@ class Engine:
         Returns (host batch [padded_b, N_SAMPLES], true rows b, valid
         samples n)."""
         b = samples.shape[0]
-        padded_b = batch_bucket(b)
-        if self.mesh is not None:  # whole, equal shares per rank
-            d = self.mesh.data_size
-            padded_b = -(-padded_b // d) * d
+        padded_b = self._bucket(b)
         n = min(samples.shape[1], N_SAMPLES)
         if self.config.audio_transfer_dtype == "int16":
             # Ship audio at the WAV's native width; _place_batch converts on
@@ -415,11 +516,67 @@ class Engine:
         omit_special_tokens: bool = True,
     ) -> List[TranscriptionResult]:
         """On a mesh every rank passes the whole batch, decodes its share
-        and returns every row's result."""
+        and returns every row's result.
+
+        With a fallback ladder, the rows that fail a quality gate are decoded
+        again at each next temperature (openai-whisper
+        ``decode_with_fallback``, over the batch): they are gathered into a
+        ``batch_bucket`` sub-batch, whose "auto" crop is its own, and the
+        last attempt is kept even if it still fails. With word timestamps,
+        one alignment forward runs on the final tokens."""
         batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
         ac = self._resolve_audio_ctx(batch)
-        rows = batch if self.mesh is None else self.mesh.local_rows(batch)
-        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(rows, ac)
+        primary_t = self._schedule[0] if self._sampling_primary else None
+        tokens, lengths, avg_lp, nsp, mel_ms, model_ms, enc_out = self._run(
+            self._local(batch), ac, temperature=primary_t,
+            generator=None if primary_t is None else self._generator(0),
+        )
+        # Writable copies: the retries patch rows in place.
+        tokens, lengths = np.array(tokens), np.array(lengths)
+        avg_lp = None if avg_lp is None else np.array(avg_lp)
+        nsp = None if nsp is None else np.array(nsp)
+        temps = np.full(batch.shape[0], self._schedule[0], np.float64)
+
+        pending = self._failing(tokens, lengths, avg_lp, range(b))
+        for attempt, temp in enumerate(self._schedule[1:], start=1):
+            if not pending:
+                break
+            sub = np.zeros((self._bucket(len(pending)), N_SAMPLES), dtype=batch.dtype)
+            sub[: len(pending)] = batch[pending]
+            r_tok, r_len, r_lp, r_nsp, _, r_ms, _ = self._run(
+                self._local(sub), self._resolve_audio_ctx(sub), temperature=temp,
+                generator=self._generator(attempt),
+            )
+            model_ms += r_ms
+            # The retry also refreshes no_speech_prob (the prefill does not
+            # depend on the temperature; kept in step with openai's result).
+            for j, i in enumerate(pending):
+                tokens[i], lengths[i] = r_tok[j], r_len[j]
+                avg_lp[i] = r_lp[j]
+                if nsp is not None:
+                    nsp[i] = r_nsp[j]
+                temps[i] = temp
+            pending = self._failing(tokens, lengths, avg_lp, pending)
+
+        words = [None] * b
+        align_ms = 0.0
+        if self._align_mask is not None:
+            t0 = time.perf_counter()
+            matrix = self._alignment(enc_out, tokens)
+            t1 = time.perf_counter()
+            n_frames = max(2, (n // 160) // 2)  # valid encoder positions
+            if ac is not None:
+                n_frames = min(n_frames, ac)
+            for i in range(b):
+                words[i] = words_from_alignment(
+                    self.vocab, tokens[i], int(lengths[i]), len(self._prompt), matrix[i],
+                    n_frames=n_frames,
+                )
+            align_ms = (time.perf_counter() - t0) * 1e3
+            self.timer.record("align", t1 - t0)
+            self.timer.record("dtw", time.perf_counter() - t1)
+        del enc_out
+
         if mel_ms:
             self.timer.record("mel", mel_ms / 1e3)
         self.timer.record("model", model_ms / 1e3)
@@ -427,7 +584,7 @@ class Engine:
             audio_seconds=b * (n / 16_000.0),
             tokens=int(np.sum(lengths[:b])),
             utterances=b,
-            wall_s=((mel_ms or 0.0) + model_ms) / 1e3,
+            wall_s=((mel_ms or 0.0) + model_ms + align_ms) / 1e3,
         )
         return [
             self.result_from_tokens(
@@ -435,9 +592,54 @@ class Engine:
                 mel_ms=mel_ms, model_ms=model_ms,
                 no_speech_prob=None if nsp is None else float(nsp[i]),
                 avg_logprob=None if avg_lp is None else float(avg_lp[i]),
+                temperature=float(temps[i]) if self._sampling_on else None,
+                words=words[i],
             )
             for i in range(b)
         ]
+
+    def _local(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global host batch (all of it off a mesh)."""
+        return batch if self.mesh is None else self.mesh.local_rows(batch)
+
+    def _bucket(self, rows: int) -> int:
+        """The padded row count of a run of ``rows`` rows: the batch bucket,
+        rounded up to whole equal shares on a mesh."""
+        padded = batch_bucket(rows)
+        if self.mesh is not None:
+            d = self.mesh.data_size
+            padded = -(-padded // d) * d
+        return padded
+
+    def _failing(self, tokens, lengths, avg_lp, rows) -> List[int]:
+        """The rows among ``rows`` whose decode fails a quality gate
+        (:func:`decode.fallback.needs_fallback`); none without a ladder."""
+        if len(self._schedule) < 2:
+            return []
+        return [
+            i for i in rows
+            if needs_fallback(
+                decode_tokens(self.vocab, tokens[i][self._sot_index : int(lengths[i])], True),
+                None if avg_lp is None else float(avg_lp[i]),
+                self.config.compression_ratio_threshold,
+                self.config.logprob_threshold,
+            )
+        ]
+
+    def _alignment(self, enc_out: torch.Tensor, tokens: np.ndarray) -> np.ndarray:
+        """The alignment forward on the final tokens of every row ([B, T]
+        host, every rank's) over this rank's encoder output → [B, T, Ta]
+        f32 on the host: each rank aligns its own rows, and the matrices
+        are gathered like the tokens."""
+        cross_kv = precompute_cross_kv(
+            self.assets.params, enc_out, self.dims, kv_dtype=self._kv_dtype
+        )
+        toks = torch.from_numpy(self._local(np.asarray(tokens))).to(self.device, torch.long)
+        matrix = alignment_matrix(
+            self.assets.params, toks, cross_kv, self.dims, self._align_mask,
+            compute_dtype=self._compute_dtype,
+        ).cpu().numpy()
+        return matrix if self.mesh is None else allgather_rows(matrix)
 
     def transcribe_batches(
         self, batches: Sequence[np.ndarray], omit_special_tokens: bool = True
@@ -453,16 +655,7 @@ class Engine:
         only its share of ``paths`` (``parallel/multihost.py``), and every
         rank returns the full, path-ordered result list."""
         if self.mesh is not None and world_size() > 1:
-            # JAX's temperature-fallback ladder is not carried over: sampling
-            # is not ported (the engine refuses it).
-            rows, mel_ms, model_ms = self._mp_pass(paths)
-            return [
-                self.result_from_tokens(
-                    toks, length, omit_special_tokens, mel_ms=mel_ms, model_ms=model_ms,
-                    avg_logprob=lp, no_speech_prob=nsp,
-                )
-                for toks, length, lp, nsp in rows
-            ]
+            return self._transcribe_files_multiprocess(paths, omit_special_tokens)
         batch = np.zeros((len(paths), N_SAMPLES), dtype=np.float32)
         for i, p in enumerate(paths):
             s = self._read_audio(p)
@@ -470,10 +663,57 @@ class Engine:
             batch[i, :n] = s[:n]
         return self.transcribe_batch(batch, omit_special_tokens)
 
-    def _mp_pass(self, path_list: Sequence[str]):
+    def _transcribe_files_multiprocess(
+        self, paths: Sequence[str], omit_special_tokens: bool
+    ) -> List[TranscriptionResult]:
+        """``transcribe_files`` over several processes, with the whole
+        fallback ladder: every rank gathers the same rows, computes the same
+        failing set from the same gates, and the failing *paths* run again
+        as one pass of their own (each rank reads only its share of them),
+        so every rank stays in step and no audio moves between ranks. Word
+        timestamps are not computed on this path, as in JAX."""
+        primary_t = self._schedule[0] if self._sampling_primary else None
+        rows, mel_ms, model_ms = self._mp_pass(
+            paths, temperature=primary_t,
+            generator=None if primary_t is None else self._generator(0),
+        )
+        temps = [self._schedule[0]] * len(paths)
+
+        def failing(idxs):
+            toks, lens, lps, _ = zip(*rows)
+            return self._failing(toks, lens, lps, idxs)
+
+        pending = failing(range(len(paths)))
+        for attempt, temp in enumerate(self._schedule[1:], start=1):
+            if not pending:
+                break
+            r_rows, _, r_ms = self._mp_pass(
+                [paths[i] for i in pending], temperature=temp, generator=self._generator(attempt)
+            )
+            model_ms += r_ms
+            for j, i in enumerate(pending):  # the last attempt is kept
+                rows[i] = r_rows[j]
+                temps[i] = temp
+            pending = failing(pending)
+        return [
+            self.result_from_tokens(
+                toks, length, omit_special_tokens, mel_ms=mel_ms, model_ms=model_ms,
+                avg_logprob=lp, no_speech_prob=nsp,
+                temperature=float(temps[i]) if self._sampling_on else None,
+            )
+            for i, (toks, length, lp, nsp) in enumerate(rows)
+        ]
+
+    def _mp_pass(
+        self,
+        path_list: Sequence[str],
+        temperature: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """One pass over ``path_list`` on every rank: each rank reads its
-        files into the uniform row count, runs them, and the gathered rows
-        are mapped back to path order. Returns (per-path [(tokens, length,
+        files into the uniform row count, runs them (at ``temperature``
+        through the sampler, when given), and the gathered rows are mapped
+        back to path order. Returns (per-path [(tokens, length,
         avg_logprob, no_speech_prob)], mel_ms, model_ms).
 
         The gathered rows are rank-major, every rank padded to the same
@@ -484,8 +724,8 @@ class Engine:
         rows, _ = load_files_sharded(
             path_list, self.mesh, max_len=N_SAMPLES, read=self._read_audio
         )
-        tokens, lengths, avg_lp, nsp, mel_ms, model_ms = self._run(
-            rows, self._resolve_audio_ctx(None)
+        tokens, lengths, avg_lp, nsp, mel_ms, model_ms, _ = self._run(
+            rows, self._resolve_audio_ctx(None), temperature=temperature, generator=generator
         )
         per_host = uniform_host_rows(len(path_list), self.mesh)
         out: List[Optional[tuple]] = [None] * len(path_list)
@@ -511,6 +751,8 @@ class Engine:
         model_ms: float = 0.0,
         no_speech_prob: Optional[float] = None,
         avg_logprob: Optional[float] = None,
+        temperature: Optional[float] = None,
+        words: Optional[list] = None,
     ) -> TranscriptionResult:
         """Detokenize one decoded row into a TranscriptionResult."""
         row = np.asarray(tokens[:length])
@@ -525,6 +767,7 @@ class Engine:
         else:
             language = "en" if not self.config.multilingual else ""
         segments = parse_segments(self.vocab, row) if self.config.timestamps else None
+        cr = compression_ratio(text) if self._sampling_on else None
         # Silence gate (openai transcribe.py): skip the window when the
         # no-speech probability clears the threshold, unless a high
         # avg_logprob (beam) overrides it.
@@ -544,7 +787,175 @@ class Engine:
             no_speech_prob=no_speech_prob,
             is_silent=is_silent,
             avg_logprob=avg_logprob,
+            compression_ratio=cr,
+            temperature=temperature,
+            words=words,
         )
+
+    # --- long form -----------------------------------------------------------
+    def transcribe_long(
+        self, audio: Union[str, np.ndarray], omit_special_tokens: bool = True
+    ) -> LongTranscriptionResult:
+        """Audio of any length: VAD speech spans (``audio/vad.speech_segments``)
+        packed into ≤ 30 s chunks, a span longer than 30 s split hard, and
+        every chunk transcribed in one batch. No conditioning across
+        chunks (see :meth:`transcribe_sequential` for that)."""
+        samples = (
+            self._read_audio(audio) if isinstance(audio, str)
+            else np.asarray(audio, dtype=np.float32)
+        )
+        chunks: List[Tuple[int, np.ndarray]] = []  # (start_sample, chunk)
+        if len(samples) <= N_SAMPLES:
+            chunks.append((0, samples))
+        else:
+            spans = speech_segments(samples) or [(0, len(samples))]
+            win_start, win_end = None, None
+            for s, e in spans:
+                while e - s > N_SAMPLES:  # one long span → hard split
+                    if win_start is not None:
+                        chunks.append((win_start, samples[win_start:win_end]))
+                        win_start = None
+                    chunks.append((s, samples[s : s + N_SAMPLES]))
+                    s += N_SAMPLES
+                if win_start is None:
+                    win_start, win_end = s, e
+                elif e - win_start <= N_SAMPLES:
+                    win_end = e
+                else:
+                    chunks.append((win_start, samples[win_start:win_end]))
+                    win_start, win_end = s, e
+            if win_start is not None:
+                chunks.append((win_start, samples[win_start:win_end]))
+
+        max_len = max(len(c) for _, c in chunks)
+        batch = np.zeros((len(chunks), min(max_len, N_SAMPLES)), np.float32)
+        for i, (_, c) in enumerate(chunks):
+            n = min(len(c), N_SAMPLES)
+            batch[i, :n] = c[:n]
+        results = self.transcribe_batch(batch, omit_special_tokens)
+        text = " ".join(r.clean_text().strip() for r in results if r.clean_text().strip())
+        return LongTranscriptionResult(
+            text=text, offsets=[s / 16_000.0 for s, _ in chunks], chunks=results
+        )
+
+    def transcribe_sequential(
+        self, audio: Union[str, np.ndarray], condition_on_previous_text: bool = True
+    ) -> TranscriptionResult:
+        """openai-style sequential long form: a sliding 30 s window with
+        timestamp-driven seek and previous-text conditioning
+        (``decode/sequential.py``). One result whose ``segments`` carry
+        absolute times over the whole file, and whose ``tokens`` are the
+        segments' text tokens.
+
+        Timestamp rules are on whatever ``config.timestamps`` says; every
+        window is encoded whole (no ``audio_ctx`` crop), sent as float32,
+        and decoded greedy or by beam with a budget of ``min(max_new_tokens,
+        n_text_ctx - P)``; no fallback ladder, no silence gate. The language
+        is detected once, on the first window, when not configured. Not on
+        a mesh: the windows run one after the other on one rank."""
+        if self.mesh is not None:
+            raise ValueError("transcribe_sequential runs one window at a time, not on a mesh")
+        samples = (
+            self._read_audio(audio) if isinstance(audio, str)
+            else np.asarray(audio, dtype=np.float32)
+        )
+        st = self.vocab.specials
+        language = self.config.language
+        if language is None and self.config.multilingual:
+            language = self._detect_language_once(samples[:N_SAMPLES])
+        rules = make_rules(
+            self.vocab, timestamps=True, suppress_blank=self.config.suppress_blank,
+            suppress_nonspeech=self.config.suppress_nonspeech, n_vocab=self.dims.n_vocab,
+        )
+
+        t_run = time.perf_counter()
+        seek = 0  # samples
+        prev_tokens: List[int] = []
+        all_segments: list = []
+        all_text_tokens: List[int] = []
+        model_ms = 0.0
+        n_total = max(len(samples), 1)
+        while seek < n_total:
+            window = np.zeros((1, N_SAMPLES), np.float32)
+            chunk = samples[seek : seek + N_SAMPLES]
+            window[0, : len(chunk)] = chunk
+            prefix = crop_prefix(prev_tokens) if condition_on_previous_text else []
+            prompt = build_prompt(
+                self.config.multilingual,
+                language=language,
+                task=self.config.task,
+                timestamps=True,
+                specials=st,
+                reference_quirks=self.config.reference_quirks,
+                prefix_tokens=prefix or None,
+                n_text_ctx=self.dims.n_text_ctx,
+            )
+            t0 = time.perf_counter()
+            tokens, length = self._seq_window(window, prompt, rules)
+            model_ms += (time.perf_counter() - t0) * 1e3
+
+            gen = [int(t) for t in tokens[len(prompt) : length]]
+            emit, advance_s = window_emit_and_advance(gen, st.beg, st.eot)
+            segs = parse_segments(self.vocab, emit, time_offset=seek / 16_000.0)
+            all_segments.extend(segs)
+            for seg in segs:
+                all_text_tokens.extend(seg.tokens)
+                prev_tokens.extend(seg.tokens)
+            seek += int(advance_s * 16_000)
+
+        text = decode_tokens(self.vocab, all_text_tokens, True)
+        self.timer.record("model", model_ms / 1e3)
+        self.throughput.add(
+            audio_seconds=len(samples) / 16_000.0,
+            tokens=len(all_text_tokens),
+            utterances=1,
+            wall_s=time.perf_counter() - t_run,
+        )
+        return TranscriptionResult(
+            text=text,
+            tokens=np.asarray(all_text_tokens, np.int32),
+            length=len(all_text_tokens),
+            language=language or "",
+            segments=all_segments,
+            mel_ms=None,
+            model_ms=model_ms,
+        )
+
+    def _seq_window(self, window: np.ndarray, prompt: List[int], rules) -> Tuple[np.ndarray, int]:
+        """One sequential window: mel → encoder → timestamp-rule decode with
+        ``prompt`` → (token row on the host, its length)."""
+        enc_out = self._encode(window, None)
+        budget = self.dims.n_text_ctx - len(prompt)
+        max_new = (
+            min(self.config.max_new_tokens, budget)
+            if self.config.max_new_tokens is not None
+            else budget
+        )
+        prompts = torch.tensor([prompt], dtype=torch.long, device=self.device)
+        common = dict(
+            dims=self.dims, eot=self.vocab.specials.eot, max_new_tokens=max_new, rules=rules,
+            logit_bias=self._logit_bias, compute_dtype=self._compute_dtype,
+            kv_cache_dtype=self._kv_dtype,
+        )
+        if self.config.beam_size > 1:
+            out = beam_decode(
+                self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
+                fused=self.config.fused_step, **common,
+            )
+        else:
+            out = greedy_decode(self.assets.params, enc_out, prompts, **common)
+        return out[0][0].int().cpu().numpy(), int(out[1][0])
+
+    def _detect_language_once(self, samples: np.ndarray) -> str:
+        """One-shot language ID on the first window (the sequential mode
+        pins the language for the whole file, as openai transcribe does)."""
+        window = np.zeros((1, N_SAMPLES), np.float32)
+        window[0, : len(samples)] = samples[:N_SAMPLES]
+        tok = detect_language_tokens(
+            self.assets.params, self._encode(window, None), self.dims,
+            sot=self.vocab.specials.sot, compute_dtype=self._compute_dtype,
+        )
+        return lang_code(int(tok[0]) - self.vocab.specials.sot - 1)
 
     # --- constructors ------------------------------------------------------
     @classmethod
@@ -595,23 +1006,24 @@ class Monolith(Engine):
     """The whole pipeline as one run (reference whisper.cpp:667-738): pad →
     mel → encode → decode → token IDs."""
 
-    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
+    def _run(self, batch, audio_ctx, temperature=None, generator=None):
         t0 = time.perf_counter()
-        out = self._to_host(self._decode(self._encode(batch, audio_ctx)))
-        return (*out, None, (time.perf_counter() - t0) * 1e3)
+        enc_out = self._encode(batch, audio_ctx)
+        out = self._to_host(self._decode(enc_out, temperature, generator))
+        return (*out, None, (time.perf_counter() - t0) * 1e3, enc_out)
 
 
 class EncDec(Engine):
     """Separate encode and decode stages (reference whisper.cpp:740-776)."""
 
-    def _run(self, batch: np.ndarray, audio_ctx: Optional[int]):
+    def _run(self, batch, audio_ctx, temperature=None, generator=None):
         t0 = time.perf_counter()
         enc_out = self._encode(batch, audio_ctx)
         self._sync()
         t1 = time.perf_counter()
-        out = self._to_host(self._decode(enc_out))
+        out = self._to_host(self._decode(enc_out, temperature, generator))
         t2 = time.perf_counter()
-        return (*out, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        return (*out, (t1 - t0) * 1e3, (t2 - t1) * 1e3, enc_out)
 
 
 def create_engine(

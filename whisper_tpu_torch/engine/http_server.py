@@ -119,10 +119,8 @@ class TranscribeServer:
                     "language": result.language,
                     "length": result.length,
                     "avg_logprob": result.avg_logprob,
-                    # Sampling and its fallback are not ported: no result
-                    # carries these yet (JAX's are None without them too).
-                    "compression_ratio": None,
-                    "temperature": None,
+                    "compression_ratio": result.compression_ratio,
+                    "temperature": result.temperature,
                 }
                 if result.segments is not None:
                     payload["segments"] = [

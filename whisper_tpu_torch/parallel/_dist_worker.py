@@ -5,7 +5,7 @@
         --out RESULT.json [--model large-v3] [--seed 0 | --params PARAMS.pt] \\
         [--device cuda] [--dtype bfloat16] [--beam 5] [--quantization int8] \\
         [--kv-cache-dtype float8_e4m3fn] [--fused-step auto[,off]] [--max-new 64] \\
-        [--threads 0]
+        [--fallback] [--word-timestamps] [--threads 0]
 
 Counterpart of ``whisper_tpu/parallel/_dist_worker.py``. Under ``torchrun
 --nproc-per-node N -m whisper_tpu_torch.parallel._dist_worker ...`` the
@@ -21,8 +21,14 @@ padding) or ``transcribe_batch`` over the [B, n] float32 array in ``--npy``
 (``from_random`` on ``--device``) or from ``--params``, a tree saved with
 ``torch.save`` (e.g. ``params_from_jax`` of the JAX package's weights).
 ``--fused-step`` may list several beam step modes; each runs on the same
-weights. For each, the gathered results (tokens up to their length,
-lengths, text, avg_logprob, no-speech probabilities) and this rank's
+weights. ``--fallback`` adds a retry ladder (0.5 after the primary) behind
+a logprob gate no decode clears, so that every row walks the whole ladder
+(on ``--paths``, through the multi-process ladder). ``--word-timestamps``
+turns on the alignment forward (each rank aligns its rows; not on the
+``--paths`` pass, as in JAX). For each, the gathered results (tokens up to
+their length, lengths, text, avg_logprob, no-speech probabilities,
+temperature and compression ratio, words as ``[word, start, end]``) and
+this rank's
 launches of K1, K2, K2′ and K4 over that run go to ``--out`` as JSON, with a
 checksum of the rank's weights. float32 stays float32 on the card (TF32
 off), so that its runs can be held against the CPU's.
@@ -113,6 +119,9 @@ def _rows(results) -> list:
             "text": r.text,
             "avg_logprob": r.avg_logprob,
             "no_speech_prob": r.no_speech_prob,
+            "temperature": r.temperature,
+            "compression_ratio": r.compression_ratio,
+            "words": None if r.words is None else [[w.word, w.start, w.end] for w in r.words],
         }
         for r in results
     ]
@@ -138,6 +147,9 @@ def main() -> int:
     ap.add_argument("--kv-cache-dtype", default=None)
     ap.add_argument("--fused-step", default="auto", help="beam step modes, comma-separated")
     ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--fallback", action="store_true",
+                    help="a retry ladder behind a gate no decode clears")
+    ap.add_argument("--word-timestamps", action="store_true")
     ap.add_argument("--threads", type=int, default=0, help="torch CPU threads (0: default)")
     args = ap.parse_args()
 
@@ -159,7 +171,13 @@ def main() -> int:
         model=args.model, dtype=args.dtype, beam_size=args.beam,
         quantization=args.quantization, kv_cache_dtype=args.kv_cache_dtype,
         max_new_tokens=args.max_new, mesh_shape=(world_size(), 1),
+        word_timestamps=args.word_timestamps,
     )
+    if args.fallback:
+        cfg = dataclasses.replace(
+            cfg, fallback_temperatures=(0.5,), logprob_threshold=1e9,
+            compression_ratio_threshold=None,
+        )
     params = None
     if args.params:
         params = torch.load(args.params, map_location="cpu", weights_only=True)
