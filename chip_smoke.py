@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the kernel, the plain version and the library call (or the nearest
    composite, labelled) beside the bound;
    K1 and ``scaled_dot_product_attention`` also at T = 256, 512, 1024 and
-   1500 at large-v3 width (batch 4, 20 heads), one line per T.
+   1500 at large-v3 width (batch 4, 20 heads), one line per T, and at a
+   ``tiny`` draft encoder's shape [4, 1500, 6, 64] in bf16 and f32 (phase
+   8a's draft of its own frontend) beside its plain version, the library
+   call and the bound.
    K5's path is its entry point on the main path's batch: one launch. K2′
    (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
    a batch of 4 on 2 ranks, with global source rows. K2 and K2′ with new
@@ -81,7 +84,12 @@ Phases, in order; any failure exits non-zero before the last line:
    ``word_timestamps=True`` (over a vocab whose ids from 256 up are each a
    word) equal; ``transcribe_sequential`` of 35 s: tokens and segments
    equal. (The noise of T > 0 is the device's own stream: Philox on the
-   card, MT19937 on the CPU, so sampled tokens are not compared.)
+   card, MT19937 on the CPU, so sampled tokens are not compared.) And
+   speculative decoding: with ``max_new_tokens=None`` (the decode
+   reaches the end of the 448-token context) a random ``tiny`` draft and a
+   self-draft on the card, and the self-draft on the CPU, give the card's
+   greedy tokens; a ``dev`` draft (another encoder width, so its own mel
+   and encoder) gives greedy's tokens on the card and the CPU's.
 6. Serving at full width, large-v3 (``engine/serving.py``,
    ``engine/http_server.py``):
 6a. The slot pool: greedy bf16, ``audio_ctx=None``, phase 4's weights,
@@ -124,12 +132,37 @@ Phases, in order; any failure exits non-zero before the last line:
    of 35 s with a 16-token budget and language detection: at most 35
    windows, K1 32 × (windows + 1), segments ordered.
 
+8. Speculative decoding at full width (``decode/speculative.py``), every
+   launch count set to 0 just before each run and checked exactly after:
+8a. large-v3 in float32 (TF32 off), phase 4's batch, 64-token budget:
+   greedy, then three drafts at k = 4: a self-draft (the target's own
+   weights: every draft accepted, ⌈63 / 5⌉ rounds when a row runs to the
+   budget), a random ``distil-large-v3`` (shares the target's encoder
+   output: K1 32) and a random ``tiny`` (its own mel and encoder: K1 32 +
+   4). Tokens must equal greedy's exactly; rounds and acceptance printed.
+8b. The default bf16 config on phase 4's weights with a random
+   ``distil-large-v3`` draft, timed beside greedy in the same phase: rounds,
+   acceptance, rows equal to phase 4's tokens. bf16 window and step logits
+   differ by reduction order (JAX measured up to 0.064 at large-v3), and
+   random weights leave thin margins: a row may leave phase 4's tokens only
+   where the target's top-2 gap at its first differing position (teacher-
+   forced, the rules applied) is below 0.25, else the phase fails.
+9. The CLI on the card: subprocesses of ``python -m whisper_tpu_torch.cli``
+   (their launch counts printed at exit) on two WAV files the script
+   writes: ``transcribe`` at large-v3 greedy with ``--output-format all``
+   (five files per input), with ``--draft-model distil-large-v3``, and with
+   the flagship flags (K2 > 0, 32 per beam step); ``convert`` of an
+   openai-format ``.pt`` of random ``tiny`` weights, ``transcribe
+   --checkpoint`` of the npz (text and lengths equal to the in-process
+   engine's on the same file), and ``info``. Every run exits 0.
+
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -325,7 +358,41 @@ def phase_kernels(torch, attention) -> dict:
             f"kernel / library {kern_ms / lib_ms:.3f}")
         per_t.append({"t": t, "ms": kern_ms, "library_ms": lib_ms, "bound_ms": bound})
     record["per_t"] = per_t
+    record["draft_shape"] = k1_draft_shape(torch, attention, gen)
     return record
+
+
+def k1_draft_shape(torch, attention, gen) -> list:
+    """K1 at a ``tiny`` draft encoder's shape, [4, 1500, 6, 64] (phase 8a's
+    draft of its own frontend, batch 4), in bf16 and f32: against its
+    plain version with the tolerance of phase 3, timed beside the plain
+    version, ``scaled_dot_product_attention`` and the bound."""
+    import torch.nn.functional as F
+
+    out = []
+    shape = (4, 1500, 6, 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        got = attention.fused_self_attention(q, k, v)
+        ref = attention.fused_self_attention_reference(q, k, v)
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+        if not bool(torch.isfinite(got).all()) or err > tol:
+            fail(f"K1 disagrees with its plain version at the draft's shape {shape} {dtype}: {err} > {tol}")
+        kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
+        plain_ms = time_ms(lambda: attention.fused_self_attention_reference(q, k, v))
+        lib_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        )
+        bound, bound_by = attention_bound_ms(*shape, q.element_size())
+        name = str(dtype)[6:]
+        log(f"  K1 at the tiny draft's shape {list(shape)} {name}: max_abs_err {err:.3g} (tol {tol:.3g}); "
+            f"kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        out.append({"shape": list(shape), "dtype": name, "max_abs_err": err, "ms": kern_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by})
+    return out
 
 
 def _as_bytes(t):
@@ -367,7 +434,7 @@ def kernels_per_call(torch, fn, traces: int = 3) -> list:
     fn()  # warm: libraries loaded, allocator primed
     torch.cuda.synchronize()
     for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1529,6 +1596,44 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
 
     phase_options_card_vs_cpu(params, cfg, x, Monolith)
     phase_serving_card_vs_cpu(torch, params, cfg, Monolith)
+    phase_speculative_card_vs_cpu(params, cfg, x, Monolith, card)
+
+
+def phase_speculative_card_vs_cpu(params, cfg, x, Monolith, card_greedy) -> None:
+    """Phase 5's part for speculative decoding (docstring), tiny f32: with
+    ``max_new_tokens=None`` (the decode reaches the end of the 448-token
+    context) a random ``tiny`` draft and a self-draft on the card give
+    greedy's tokens, and the self-draft on the CPU the same; a ``dev``
+    draft (another encoder width: its own mel and encoder) under the tiny
+    target gives greedy's tokens on the card and the CPU's."""
+    from whisper_tpu_torch.models.params import to_device
+
+    full = dataclasses.replace(cfg, max_new_tokens=None)
+    spec = dataclasses.replace(full, draft_model="tiny", k_draft=4)
+    greedy = Monolith.from_assets(params, full, device="cuda").transcribe_batch(x)
+    runs = {}
+    for name, device, draft in (("random tiny draft, card", "cuda", None),
+                                ("self-draft, card", "cuda", params), ("self-draft, CPU", "cpu", params)):
+        eng = Monolith.from_assets(params, spec, device=device, draft_params=draft)
+        runs[name] = (eng.transcribe_batch(x), eng.last_spec_stats)
+    log(f"  speculative, max_new_tokens=None: greedy lengths {[r.length for r in greedy]} "
+        f"of {len(greedy[0].tokens)}")
+    for name, (res, stats) in runs.items():
+        log(f"  speculative, {name}: {stats}")
+        if not all(_same_tokens(a, b) for a, b in zip(res, greedy)):
+            fail(f"tiny f32 speculative ({name}, to the end of the context) differs from greedy on the card")
+    log("  speculative to the end of the context: card random draft == card self-draft == CPU self-draft "
+        "== card greedy")
+
+    own = dataclasses.replace(cfg, draft_model="dev", k_draft=3)
+    card_eng = Monolith.from_assets(params, own, device="cuda")
+    cpu_eng = Monolith.from_assets(params, own, device="cpu", draft_params=to_device(card_eng._draft_params, "cpu"))
+    if card_eng._draft_share_encoder:
+        fail("a dev draft under a tiny target should run its own encoder")
+    card_res, cpu_res = card_eng.transcribe_batch(x), cpu_eng.transcribe_batch(x)
+    if not all(_same_tokens(a, b) and _same_tokens(a, c) for a, b, c in zip(card_res, cpu_res, card_greedy)):
+        fail("tiny f32 with a dev draft (own encoder): card, CPU and greedy tokens differ")
+    log(f"  speculative, dev draft with its own encoder: card == CPU == greedy ({card_eng.last_spec_stats})")
 
 
 def phase_options_card_vs_cpu(params, cfg, x, Monolith) -> None:
@@ -1934,6 +2039,277 @@ def phase_long_form(torch, kernels, beam, engine) -> dict:
             "sequential_audio_s_per_s": 35.0 / wall_s, "sequential_launches": n_s}
 
 
+def _top2_gap(torch, engine, host_row: np.ndarray, tokens: np.ndarray, p: int) -> float:
+    """The target's top-2 gap of its rule-constrained logits for position
+    ``p`` of greedy's row ``tokens`` (one utterance, teacher-forced over
+    ``tokens[:p]`` in the engine's dtype): how near a tie the pick was."""
+    from whisper_tpu_torch.models.decoder import decoder_prefill, init_kv_cache, precompute_cross_kv
+
+    batch, _, _ = engine._prepare_batch(host_row[None])
+    enc = engine._encode(batch[:1], engine._resolve_audio_ctx(batch[:1]))
+    cross = precompute_cross_kv(engine.assets.params, enc, engine.dims)
+    toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(engine.device)[None]
+    cache = init_kv_cache(engine.dims, 1, p, dtype=engine._compute_dtype, device=engine.device)
+    logits, _ = decoder_prefill(engine.assets.params, toks[:, :p], cache, cross, engine.dims,
+                                engine._compute_dtype)
+    x = logits[:, -1].float()
+    if engine._logit_bias is not None:
+        x = x + engine._logit_bias
+    if engine._rules is not None:
+        x = engine._rules.apply(x, toks, p, len(engine._prompt))
+    top = torch.topk(x[0], 2).values
+    return float(top[0] - top[1])
+
+
+def _round_costs(torch, eng) -> dict:
+    """One speculative round's parts at phase 8a's batch of 4, caches 36
+    positions deep: a draft step (per-row positions), the target's window
+    of k + 1 tokens, and the target's greedy step beside them. Each as the
+    device time and kernel count of one call (``torch.profiler``: a call
+    launches thousands of kernels, more than the launch queue holds behind
+    :func:`time_ms`'s spin) and as synchronised host wall per call (the
+    decode is host-bound: the wall is what a round pays)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.models.decoder import (
+        decoder_step,
+        decoder_window,
+        init_kv_cache,
+        precompute_cross_kv,
+    )
+
+    b, k, pos0, cdt = 4, eng.config.k_draft, 36, eng._compute_dtype
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sides = {}
+    for side, params, dims in (("target", eng.assets.params, eng.dims),
+                               ("draft", eng._draft_params, eng._draft_dims)):
+        enc = torch.randn((b, dims.n_audio_ctx, dims.n_audio_state), generator=gen, device="cuda").to(cdt)
+        cache = init_kv_cache(dims, b, 68 + k, dtype=cdt, device="cuda")
+        sides[side] = (params, dims, precompute_cross_kv(params, enc, dims), cache)
+    tok = torch.full((b,), 1000, dtype=torch.long, device="cuda")
+    pos = torch.full((b,), pos0, dtype=torch.long, device="cuda")
+    window = torch.full((b, k + 1), 1000, dtype=torch.long, device="cuda")
+    pt, dt, xt, ct = sides["target"]
+    pd, dd, xd, cd = sides["draft"]
+    fns = {
+        "draft_step": lambda: decoder_step(pd, tok, pos, cd, xd, dd, cdt),
+        "target_window": lambda: decoder_window(pt, window, pos, ct, xt, dt, cdt),
+        "target_step": lambda: decoder_step(pt, tok, pos0, ct, xt, dt, cdt),
+    }
+    out = {}
+    for name, fn in fns.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": sum(e.device_time for e in kernels) / 3e3,  # device_time is µs
+                     "kernels": len(kernels) // 3, "wall_ms": (time.perf_counter() - t0) * 1e2}
+    return out
+
+
+BF16_NEAR_TIE = 0.25  # 8b's rule: a row may leave phase 4's tokens only at a pick this near a tie
+
+
+def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict:
+    """Phase 8 (docstring): 8a large-v3 f32 with three drafts against
+    greedy, tokens exact; 8b the default bf16 config with a distil-large-v3
+    draft against phase 4. Each run's launch counts set to 0 just before
+    and checked just after."""
+    from whisper_tpu_torch.config import EngineConfig
+    from whisper_tpu_torch.engine import EngineType, create_engine
+
+    _, batch, audio_s = main_path_batch()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = {}
+    base = create_engine(EngineType.MONOLITH, EngineConfig(model="large-v3", dtype="float32", max_new_tokens=64), seed=0,
+                         device="cuda")
+    greedy, wall, n = _timed(torch, kernels, beam, lambda: base.transcribe_batch(batch))
+    check_results(greedy, base, base.dims.n_vocab)
+    _expect("8a greedy", n, {"K1": LARGE_V3_ENC_LAYERS})
+    total = len(base._prompt) + base._max_new
+    log(f"  8a greedy f32: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; lengths "
+        f"{[r.length for r in greedy]} of {total}; launches {n}")
+    record["8a_greedy"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n}
+    drafts = (
+        ("self-draft", "large-v3", base.assets.params, LARGE_V3_ENC_LAYERS),
+        ("distil-large-v3", "distil-large-v3", None, LARGE_V3_ENC_LAYERS),
+        ("tiny", "tiny", None, LARGE_V3_ENC_LAYERS + 4),  # + its own encoder's 4 layers
+    )
+    for name, model, params, k1 in drafts:
+        eng = type(base)(base.assets, dataclasses.replace(base.config, draft_model=model, k_draft=4),
+                         device="cuda", draft_params=params)
+        res, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
+        st = eng.last_spec_stats
+        log(f"  8a {name} (k 4, encoder {'shared' if eng._draft_share_encoder else 'its own'}): "
+            f"{wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; rounds {st['rounds']}, accepted "
+            f"{st['accepted']} of {st['drafted']} ({st['accepted'] / st['drafted']:.3f}); launches {n}")
+        _expect(f"8a {name}", n, {"K1": k1})
+        for a, b in zip(res, greedy):
+            if not _same_tokens(a, b):
+                fail(f"8a {name}: tokens {a.tokens[: a.length].tolist()} differ from greedy's "
+                     f"{b.tokens[: b.length].tolist()}")
+        costs = _round_costs(torch, eng)
+        log("    one round's parts (device ms, kernels, host wall ms per call): " + "; ".join(
+            f"{part} {c['device_ms']:.2f}, {c['kernels']}, {c['wall_ms']:.2f}" for part, c in costs.items()))
+        if name == "self-draft" and max(r.length for r in greedy) == total:
+            want = -(-(base._max_new - 1) // 5)  # after the first pick, k + 1 = 5 per round
+            if st["rounds"] != want:
+                fail(f"8a self-draft: {st['rounds']} rounds, expected {want}")
+        record[f"8a_{name}"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n, **st,
+                                "round_costs": costs}
+        del eng
+    log("  8a: every draft's tokens equal greedy's")
+    del base
+
+    # 8b: the default bf16 config (phase 4's weights) with a distil draft.
+    plain, wall_p, n_p = _timed(torch, kernels, beam, lambda: main_engine.transcribe_batch(batch))
+    eng = _engine_with(main_engine, draft_model="distil-large-v3", k_draft=4)
+    res, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
+    check_results(res, eng, eng.dims.n_vocab)
+    _expect("8b", n, {"K1": LARGE_V3_ENC_LAYERS})
+    st = eng.last_spec_stats
+    same = [_same_tokens(a, b) for a, b in zip(res, phase4_results)]
+    log(f"  8b bf16, distil-large-v3 draft: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s "
+        f"(greedy in the same phase {wall_p * 1e3:.1f} ms → {audio_s / wall_p:.2f}); rounds {st['rounds']}, "
+        f"accepted {st['accepted']} of {st['drafted']}; rows equal to phase 4's {sum(same)} of {len(same)}; "
+        f"launches {n}")
+    gaps = []
+    for i, (a, b, ok) in enumerate(zip(res, phase4_results, same)):
+        if ok:
+            continue
+        p = int(np.nonzero(a.tokens != b.tokens)[0][0])
+        gap = _top2_gap(torch, main_engine, batch[i], b.tokens, p)
+        gaps.append(gap)
+        log(f"    row {i} first differs at position {p} ({b.tokens[p]} → {a.tokens[p]}): the target's "
+            f"top-2 gap there {gap:.4f}")
+        if gap >= BF16_NEAR_TIE:
+            fail(f"8b: row {i} leaves phase 4's tokens at a pick {gap:.4f} from a tie (rule: < {BF16_NEAR_TIE})")
+    record["8b_greedy"] = {"wall_s": wall_p, "audio_s_per_s": audio_s / wall_p, "launches": n_p}
+    record["8b"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n,
+                    "rows_equal_phase4": sum(same), "top2_gaps": gaps, **st}
+    return record
+
+
+CLI_RUNNER = (
+    "import atexit, json, runpy, sys\n"
+    "from whisper_tpu_torch.frontend import mel_fused\n"
+    "from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': attention.launches, "
+    "'K2': fused_step.launches, 'K2′': fused_step.sharded_launches, 'K3': gather_attend.launches, "
+    "'K4': gather.launches, 'K5': mel_fused.launches}), file=sys.stderr))\n"
+    "sys.argv = ['whisper_tpu_torch.cli'] + sys.argv[1:]\n"
+    "runpy.run_module('whisper_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def _cli(args, timeout=600) -> tuple:
+    """``python -m whisper_tpu_torch.cli ARGS`` in a subprocess (run as the
+    ``-m`` module, its launch counts printed to stderr at exit) → (stdout,
+    stderr, wall s, launches)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], capture_output=True, text=True,
+                         timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"whisper_tpu_torch.cli {' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
+    line = [ln for ln in out.stderr.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    return out.stdout, out.stderr, wall, json.loads(line[len("LAUNCHES "):])
+
+
+def phase_cli(torch) -> dict:
+    """Phase 9 (docstring): ``python -m whisper_tpu_torch.cli`` on the card."""
+    from whisper_tpu_torch.audio.wav import write_wav
+    from whisper_tpu_torch.config import EngineConfig
+    from whisper_tpu_torch.engine import Monolith
+    from whisper_tpu_torch.models.convert import load_checkpoint, openai_state_dict
+    from whisper_tpu_torch.models.params import init_params, leaves
+
+    utts, _, _ = main_path_batch()
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [os.path.join(tmp, f"utt{i}.wav") for i in (0, 1)]
+        for path, u in zip(wavs, (utts[0], utts[2])):
+            write_wav(path, u)
+        big = ["--model", "large-v3", "--max-new-tokens", "64"]
+        runs = {
+            "greedy": ["transcribe", *wavs, *big, "--output-format", "all", "--output-dir", tmp, "--verbose"],
+            "draft": ["transcribe", *wavs, *big, "--draft-model", "distil-large-v3"],
+            "flagship": ["transcribe", *wavs, *big, "--beam-size", "5", "--quantize", "int8", "--kv-dtype", FP8],
+        }
+        for name, args in runs.items():
+            stdout, _, wall, n = _cli(args)
+            lines = [ln for ln in stdout.splitlines() if ln.strip()]
+            log(f"  9 transcribe {name}: {wall:.1f} s (a process: start, random weights, build, 2 files); "
+                f"{len(lines)} lines of text; launches {n}")
+            if len(lines) < len(wavs):
+                fail(f"9 {name}: {len(lines)} lines for {len(wavs)} files")
+            if name == "flagship":
+                if n["K2"] <= 0 or n["K2"] % LARGE_V3_DEC_LAYERS:
+                    fail(f"9 flagship: K2 launched {n['K2']} times, expected 32 per beam step, > 0")
+                _expect("9 flagship", n, {"K1": LARGE_V3_ENC_LAYERS, "K2": n["K2"]})
+            else:
+                _expect(f"9 {name}", n, {"K1": LARGE_V3_ENC_LAYERS})
+            record[name] = {"wall_s": wall, "launches": n}
+        for fmt in ("txt", "srt", "vtt", "tsv", "json"):
+            for i in (0, 1):
+                path = os.path.join(tmp, f"utt{i}.{fmt}")
+                if not os.path.exists(path) or (fmt != "txt" and os.path.getsize(path) == 0):
+                    fail(f"9: --output-format all did not write {path}")
+        with open(os.path.join(tmp, "utt1.json")) as f:
+            if "segments" not in json.load(f):
+                fail("9: the json output has no segments")
+        log("  9 --output-format all: txt, srt, vtt, tsv, json written for both files")
+
+        # convert: an openai-format .pt of random tiny weights → npz → transcribe.
+        cfg = EngineConfig(model="tiny", dtype="float32", max_new_tokens=24, language="en")
+        params = init_params(cfg.dims(), torch.Generator().manual_seed(9))
+        pt, npz = os.path.join(tmp, "tiny.pt"), os.path.join(tmp, "tiny.npz")
+        torch.save({"dims": dataclasses.asdict(cfg.dims()), "model_state_dict": openai_state_dict(params)}, pt)
+        _, _, wall_c, _ = _cli(["convert", "--checkpoint", pt, "--output", npz])
+        stdout, stderr, wall_t, n = _cli(["transcribe", *wavs, "--checkpoint", npz, "--dtype", "float32",
+                                          "--max-new-tokens", "24", "--language", "en", "--verbose"])
+        _expect("9 tiny checkpoint", n, {"K1": 4})
+        with _torch_defaults(torch):  # as the subprocess runs: TF32 at torch's defaults
+            engine = Monolith.from_assets(load_checkpoint(npz)[0], cfg, device="cuda")
+            ref = engine.transcribe_files(wavs)
+        want = "".join(r.text + "\n" for r in ref)
+        got_lengths = [int(ln.split(", ")[-1].split(" ")[0]) for ln in stderr.splitlines()
+                       if ln.startswith("  [")]
+        if stdout != want or got_lengths != [r.length for r in ref]:
+            fail(f"9: transcribe --checkpoint printed {stdout!r} (lengths {got_lengths}), the "
+                 f"in-process engine {want!r} (lengths {[r.length for r in ref]})")
+        log(f"  9 convert ({wall_c:.1f} s) + transcribe --checkpoint ({wall_t:.1f} s): text and lengths "
+            f"equal to the in-process engine's ({[r.length for r in ref]}); launches {n}")
+        record["checkpoint"] = {"wall_s": wall_t, "launches": n}
+        stdout, _, _, _ = _cli(["info", npz])
+        info = json.loads(stdout)
+        if info["model"] != "tiny" or info["n_params"] != sum(x.numel() for x in leaves(params)):
+            fail(f"9 info: {info}")
+        log(f"  9 info: {info['model']}, {info['n_params']} parameters, {info['bytes']} bytes, {info['dtypes']}")
+    return record
+
+
+@contextlib.contextmanager
+def _torch_defaults(torch):
+    """TF32 flags at torch's defaults while the ``with`` lasts (phase 5
+    turns them off for the rest of the script)."""
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = saved
+
+
 def k5_times(torch, mel_fused) -> dict:
     """K5 on the main path's batch ([4, 480000], 128 mels): the kernel
     alone and with its epilogue, device time, and the wrapper's host time
@@ -2060,8 +2436,19 @@ def main() -> None:
     options["7c"] = phase_words(torch, kernels, beam, main_engine, main_results)
     log("[7d] long form: transcribe_long (VAD chunks) and transcribe_sequential (seek loop)")
     options["7d"] = phase_long_form(torch, kernels, beam, main_engine)
-    del main_engine
     log(f"options record: {json.dumps(options)}; phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    t8 = time.perf_counter()
+    log("[8] speculative decoding: 8a large-v3 f32 (TF32 off), three drafts against greedy; "
+        "8b bf16 (phase 4's weights) with a distil-large-v3 draft")
+    spec = phase_speculative(torch, kernels, beam, main_engine, main_results)
+    del main_engine
+    log(f"speculative record: {json.dumps(spec)}; phase 8 took {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    log("[9] the CLI: python -m whisper_tpu_torch.cli on the card")
+    cli = phase_cli(torch)
+    log(f"CLI record: {json.dumps(cli)}; phase 9 took {time.perf_counter() - t9:.1f} s")
+
     names = ("K1", "K2", "K2′", "K3", "K4", "K5")
     for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5)):
         rec["options_launches"] = {
@@ -2069,6 +2456,8 @@ def main() -> None:
             "7c": options["7c"]["launches"][name], "7d_long": options["7d"]["long_launches"][name],
             "7d_sequential": options["7d"]["sequential_launches"][name],
         }
+        rec["speculative_launches"] = {key: r["launches"][name] for key, r in spec.items()}
+        rec["cli_launches"] = {key: r["launches"][name] for key, r in cli.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))

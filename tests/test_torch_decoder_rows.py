@@ -126,12 +126,15 @@ def test_rows_at_one_depth_equal_the_int_form(setup):
 
 
 def test_rows_refuse_windows_and_beams(setup):
+    """Per-row positions decode one hypothesis per row: a beam width is
+    refused for a window (T > 1, the speculative verify pass, which is
+    ported since ``decoder_window``) as for a step."""
     _, port, enc = setup
     xkv = tdec.precompute_cross_kv(port, torch.from_numpy(enc), T_DEV)
     cache = tdec.init_kv_cache(T_DEV, 3, CTX)
     with pytest.raises(ValueError):
         tdec._decoder_forward(port, torch.ones((3, 2), dtype=torch.long), torch.tensor([1, 2, 3]),
-                              cache, xkv, T_DEV)
+                              cache, xkv, T_DEV, beam_width=3)
     with pytest.raises(ValueError):
         tdec.decoder_step(port, torch.ones(3, dtype=torch.long), torch.tensor([1, 2, 3]), cache, xkv,
                           T_DEV, beam_width=3)

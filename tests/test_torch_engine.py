@@ -105,13 +105,15 @@ def test_wav_file_and_forced_language(jax_params, tmp_path):
     [
         dict(beam_size=5, mesh_shape=(1, 2)),
         dict(beam_size=5, mesh_shape=(2, 2)),
-        dict(draft_model="tiny", temperature=0.4),  # sampling is ported, the draft is not
-        dict(initial_prompt="hello", fallback_temperatures=(0.2, 0.4)),
+        # The draft and initial_prompt text are ported: a model axis > 1
+        # (tensor parallelism) is refused with them as without them.
+        dict(draft_model="tiny", mesh_shape=(1, 2)),
+        dict(initial_prompt="hello", fallback_temperatures=(0.2, 0.4), mesh_shape=(2, 2)),
         dict(mesh_shape=(1, 4), word_timestamps=True),
-        dict(draft_model="tiny"),
+        dict(draft_model="dev", k_draft=2, mesh_shape=(1, 4)),
         dict(mesh_shape=(1, 2)),
         dict(mesh_shape=(2, 2)),
-        dict(initial_prompt="hello"),
+        dict(initial_prompt="hello", mesh_shape=(1, 2)),
     ],
 )
 def test_out_of_slice_configs_raise(override):
@@ -153,7 +155,10 @@ def test_import_leaves_jax_triton_and_reference_out():
         "import whisper_tpu_torch.decode.beam, whisper_tpu_torch.ops.fused_step\n"
         "import whisper_tpu_torch.ops.gather, whisper_tpu_torch.models.quantize\n"
         "import whisper_tpu_torch.ops.gather_attend, whisper_tpu_torch.frontend.mel_fused\n"
-        "import whisper_tpu_torch.utils.probe_fused\n"
+        "import whisper_tpu_torch.utils.probe_fused, whisper_tpu_torch.cli\n"
+        "import whisper_tpu_torch.decode.speculative, whisper_tpu_torch.tokenizer.bpe\n"
+        "import whisper_tpu_torch.models.convert, whisper_tpu_torch.utils.checkpoint\n"
+        "import whisper_tpu_torch.utils.writers, whisper_tpu_torch.utils.wer\n"
         "import whisper_tpu_torch.parallel, whisper_tpu_torch.parallel.mesh\n"
         "import whisper_tpu_torch.parallel.multihost, whisper_tpu_torch.parallel._dist_worker\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or m == 'whisper_tpu'"

@@ -1,10 +1,11 @@
 """Which EngineConfig options the port takes, and the HTTP server's report
 of the fallback ladder.
 
-* ``draft_model`` (speculative decoding), a model axis > 1 (tensor
-  parallelism) and ``initial_prompt`` text are still outside the port and
-  raise ``NotImplementedError``; ``temperature``, ``fallback_temperatures``
-  and ``word_timestamps`` are ported and construct.
+* a model axis > 1 (tensor parallelism) is still outside the port and
+  raises ``NotImplementedError``, also beside ``draft_model`` or
+  ``initial_prompt`` text, which are ported; ``temperature``,
+  ``fallback_temperatures`` and ``word_timestamps`` are ported and
+  construct.
 * A POST to a ``TranscribeServer`` ("sync" and "async") over an engine with
   a ladder returns ``temperature`` and ``compression_ratio`` from the
   result: with the gates off, JSON equal to whisper_tpu's server
@@ -36,12 +37,12 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize(
     "override",
     [
-        dict(draft_model="tiny"),
-        dict(draft_model="tiny", temperature=0.0, fallback_temperatures=(0.5,)),
+        dict(draft_model="tiny", mesh_shape=(1, 2)),
+        dict(draft_model="tiny", temperature=0.0, fallback_temperatures=(0.5,), mesh_shape=(1, 2)),
         dict(mesh_shape=(1, 2)),
         dict(mesh_shape=(1, 4), word_timestamps=True),
-        dict(initial_prompt="hello"),
-        dict(initial_prompt="hello", temperature=0.3),
+        dict(initial_prompt="hello", mesh_shape=(2, 2)),
+        dict(initial_prompt="hello", temperature=0.3, mesh_shape=(1, 2)),
     ],
 )
 def test_options_outside_the_port_still_raise(override):

@@ -29,7 +29,16 @@ On top of that one run, as in JAX:
   to the same values), then the DTW on the host;
 * **long form**: :meth:`Engine.transcribe_long` (VAD chunks of ≤ 30 s
   as one batch) and :meth:`Engine.transcribe_sequential` (openai's seek
-  loop with previous-text conditioning, ``decode/sequential.py``).
+  loop with previous-text conditioning, ``decode/sequential.py``);
+* **speculative decoding** (``draft_model``, ``k_draft``; greedy only):
+  ``decode/speculative.py`` with the draft's weights (``draft_params``, or
+  random from a seeded generator). A draft whose encoder geometry equals
+  the target's (the distil-* pairings) reuses the target's encoder
+  output; any other draft runs its own log-mel and encoder on the same
+  samples and crop in ``Monolith`` (``EncDec`` refuses it). Its results
+  carry no ``avg_logprob``; ``transcribe_sequential`` and the slot pools
+  decode without the draft, as in JAX;
+* **``initial_prompt`` text**, encoded by ``tokenizer/bpe.py``.
 
 ``mesh_shape=(d, 1)`` runs the engine as one rank of a data-parallel
 world of d processes (``parallel/``, over gloo): each rank encodes and
@@ -38,9 +47,9 @@ every rank returns the full, ordered result list. ``transcribe_files``
 reads on each rank only that rank's files.
 
 Entry points take ``device=`` and default to ``"cuda"``: asking for CUDA
-where there is none raises, and the CPU runs only when asked for. Config
-options outside the port (speculative decoding, a model axis > 1,
-``initial_prompt`` text) raise ``NotImplementedError`` at construction.
+where there is none raises, and the CPU runs only when asked for. The one
+config option outside the port, a model axis > 1 (tensor parallelism),
+raises ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ import torch
 
 from whisper_tpu_torch.audio.vad import speech_segments
 from whisper_tpu_torch.audio.wav import read_pcm_f32, read_wav, read_wav_legacy
-from whisper_tpu_torch.config import N_SAMPLES, EngineConfig, ModelDims
+from whisper_tpu_torch.config import MODEL_DIMS, N_SAMPLES, EngineConfig, ModelDims
 from whisper_tpu_torch.decode.align import (
     alignment_matrix,
     default_alignment_mask,
@@ -70,6 +79,7 @@ from whisper_tpu_torch.decode.logits import make_rules
 from whisper_tpu_torch.decode.prompt import build_prompt
 from whisper_tpu_torch.decode.segments import parse_segments
 from whisper_tpu_torch.decode.sequential import crop_prefix, window_emit_and_advance
+from whisper_tpu_torch.decode.speculative import speculative_greedy_decode
 from whisper_tpu_torch.frontend.filters import mel_filterbank
 from whisper_tpu_torch.frontend.mel import log_mel_spectrogram
 from whisper_tpu_torch.models.decoder import precompute_cross_kv
@@ -85,6 +95,7 @@ from whisper_tpu_torch.parallel.multihost import (
     world_size,
 )
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
+from whisper_tpu_torch.tokenizer.bpe import encode_initial_prompt
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
 from whisper_tpu_torch.tokenizer.languages import lang_code
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
@@ -184,12 +195,8 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _unsupported(config: EngineConfig) -> List[str]:
     """Config options outside the ported slice, by name."""
     out = []
-    if config.draft_model is not None:
-        out.append("draft_model (speculative decoding)")
     if int(np.prod(config.mesh_shape[1:])) > 1:
         out.append(f"tensor parallelism: mesh_shape={tuple(config.mesh_shape)} (model axis > 1)")
-    if config.initial_prompt is not None:
-        out.append("initial_prompt text (BPE encoder)")
     return out
 
 
@@ -210,6 +217,7 @@ class Engine:
         assets: _Assets,
         config: EngineConfig,
         device: Union[str, torch.device] = "cuda",
+        draft_params: Optional[Params] = None,
     ):
         missing = _unsupported(config)
         if missing:
@@ -238,6 +246,14 @@ class Engine:
         self.assets = assets
         # language=None on a multilingual model → per-utterance detection.
         self._autodetect = config.language is None and config.multilingual
+        if config.initial_prompt is not None and config.initial_prompt_tokens:
+            raise ValueError(
+                "initial_prompt (text) and initial_prompt_tokens (ids) are "
+                "mutually exclusive"
+            )
+        prefix_tokens = list(config.initial_prompt_tokens) if config.initial_prompt_tokens else None
+        if config.initial_prompt is not None:
+            prefix_tokens = encode_initial_prompt(assets.vocab, config.initial_prompt)
         prompt = build_prompt(
             multilingual=config.multilingual,
             language=config.language or "en",
@@ -245,11 +261,7 @@ class Engine:
             timestamps=config.timestamps,
             specials=assets.vocab.specials,
             reference_quirks=config.reference_quirks,
-            prefix_tokens=(
-                list(config.initial_prompt_tokens)
-                if config.initial_prompt_tokens
-                else None
-            ),
+            prefix_tokens=prefix_tokens,
             n_text_ctx=self.dims.n_text_ctx,
         )
         self._prompt = np.asarray(prompt, dtype=np.int32)
@@ -308,21 +320,66 @@ class Engine:
                 if config.alignment_heads is not None
                 else default_alignment_mask(self.dims)
             )
+        self._init_draft(draft_params)
         # Stage times and throughput counters (utils/profiling.py), recorded
         # by transcribe_batch and read by the HTTP server's /metrics.
         self.timer = StageTimer()
         self.throughput = Throughput()
+
+    def _init_draft(self, draft_params: Optional[Params]) -> None:
+        """Speculative decoding's draft (``config.draft_model``): greedy
+        only; its weights on the engine's device, int8 when the target's
+        are; whether it shares the target's encoder output."""
+        config = self.config
+        self._draft_params = None
+        self.last_spec_stats = None  # the last speculative decode's stats
+        if config.draft_model is None:
+            return
+        if config.beam_size > 1 or self._sampling_on:
+            raise ValueError(
+                "speculative decoding is greedy-only: draft_model "
+                "requires beam_size=1 and no sampling/fallback schedule"
+            )
+        self._draft_dims = MODEL_DIMS[config.draft_model]
+        if draft_params is None:
+            # A random draft (tests, benchmarks): the output is the target's
+            # greedy decode all the same; only the speed suffers.
+            gen = torch.Generator(device=self.device).manual_seed(1)
+            draft_params = init_params(
+                self._draft_dims, gen, dtype=self._compute_dtype, device=self.device
+            )
+        draft_params = to_device(draft_params, self.device)
+        if config.quantization == "int8" and not is_quantized(draft_params):
+            draft_params = quantize_params(draft_params)
+        self._draft_params = draft_params
+        dd = self._draft_dims
+        self._draft_share_encoder = (
+            dd.n_audio_state == self.dims.n_audio_state
+            and dd.n_mels == self.dims.n_mels
+            and dd.n_audio_ctx == self.dims.n_audio_ctx
+        )
+        if not self._draft_share_encoder:
+            self._draft_filters = torch.tensor(mel_filterbank(n_mels=dd.n_mels), device=self.device)
 
     # --- stages ------------------------------------------------------------
     def _encode(self, batch: np.ndarray, audio_ctx: Optional[int]) -> torch.Tensor:
         """Host rows → encoder output on the device, cropped to
         ``audio_ctx`` positions (None: the full window; see
         :meth:`_resolve_audio_ctx`)."""
-        samples = self._place_batch(batch)
-        mel = log_mel_spectrogram(
-            samples, self._filters, n_mels=self.dims.n_mels, compute_dtype=torch.float32
+        return self._encoder_output(self._place_batch(batch), audio_ctx)
+
+    def _encoder_output(
+        self, samples: torch.Tensor, audio_ctx: Optional[int], draft: bool = False
+    ) -> torch.Tensor:
+        """Samples on the device → log-mel → encoder output, cropped to
+        ``audio_ctx``; the target's, or with ``draft`` the draft's own
+        (its filterbank, its encoder)."""
+        params, dims, filters = (
+            (self._draft_params, self._draft_dims, self._draft_filters) if draft
+            else (self.assets.params, self.dims, self._filters)
         )
-        enc_out = encode(self.assets.params, mel.to(self._compute_dtype), self.dims)
+        mel = log_mel_spectrogram(samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32)
+        enc_out = encode(params, mel.to(self._compute_dtype), dims)
         if audio_ctx is not None and audio_ctx < enc_out.shape[1]:
             enc_out = enc_out[:, :audio_ctx]
         return enc_out
@@ -357,10 +414,13 @@ class Engine:
         enc_out: torch.Tensor,
         temperature: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        draft_enc: Optional[torch.Tensor] = None,
     ):
-        """Greedy, beam or sampling decode → (tokens, lengths, avg_logprob
-        or None, no_speech probs or None). Beam rows report their
-        length-normalised score as avg_logprob.
+        """Greedy, beam, sampling or speculative decode → (tokens, lengths,
+        avg_logprob or None, no_speech probs or None). Beam rows report their
+        length-normalised score as avg_logprob; speculative rows none.
+        ``draft_enc``: the draft's own encoder output (None: it shares
+        ``enc_out``).
 
         ``temperature`` (with ``generator``) forces the sampler whatever the
         beam size: openai's fallback semantics, where beam applies at T = 0
@@ -392,6 +452,17 @@ class Engine:
             tokens, lengths, sum_lp = out[:3]
             generated = (lengths - prompts.shape[1]).clamp(min=1).float()
             return tokens, lengths, sum_lp / generated, out[3] if ns else None
+        if self._draft_params is not None:
+            out = speculative_greedy_decode(
+                self.assets.params, self._draft_params, enc_out, prompts,
+                self.dims, self._draft_dims, eot=self.vocab.specials.eot,
+                max_new_tokens=self._max_new, k_draft=self.config.k_draft,
+                enc_out_d=draft_enc, logit_bias=self._logit_bias, rules=self._rules,
+                compute_dtype=self._compute_dtype, kv_cache_dtype=self._kv_dtype,
+                no_speech=ns, cross_kv_t=cross_kv,
+            )
+            self.last_spec_stats = out[2]
+            return out[0], out[1], None, out[3] if ns else None
         if self.config.beam_size > 1:
             out = beam_decode(
                 self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
@@ -965,17 +1036,19 @@ class Engine:
         seed: int = 0,
         vocab: Optional[Vocab] = None,
         device: Union[str, torch.device] = "cuda",
+        draft_params: Optional[Params] = None,
     ) -> "Engine":
         """Random-weights engine for tests and benchmarks, drawn on
         ``device`` from a generator seeded with ``seed``. The numbers differ
-        from the JAX package's ``from_random`` (another PRNG)."""
+        from the JAX package's ``from_random`` (another PRNG). A
+        ``draft_model`` without ``draft_params`` is random too (seed 1)."""
         device = resolve_device(device)
         if int(np.prod(config.mesh_shape)) > 1:
             device = rank_device(device)  # every rank draws the same weights on its card
         dims = config.dims()
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(dims, gen, dtype=getattr(torch, config.dtype), device=device)
-        return cls.from_assets(params, config, vocab=vocab, device=device)
+        return cls.from_assets(params, config, vocab=vocab, device=device, draft_params=draft_params)
 
     @classmethod
     def from_assets(
@@ -985,9 +1058,11 @@ class Engine:
         vocab_bin: Optional[str] = None,
         vocab: Optional[Vocab] = None,
         device: Union[str, torch.device] = "cuda",
+        draft_params: Optional[Params] = None,
     ) -> "Engine":
         """Engine over given port parameters (see
-        ``models.params.params_from_jax`` for weights from the JAX package)."""
+        ``models.params.params_from_jax`` for weights from the JAX package);
+        ``draft_params`` likewise for ``config.draft_model``."""
         dims = config.dims()
         if vocab_bin is not None:
             assets_bin = read_bin(vocab_bin, multilingual=config.multilingual)
@@ -999,7 +1074,7 @@ class Engine:
                 num_languages=num_languages_for(dims.n_vocab),
             )
             filters = mel_filterbank(n_mels=dims.n_mels)
-        return cls(_Assets(params, dims, vocab, filters), config, device=device)
+        return cls(_Assets(params, dims, vocab, filters), config, device=device, draft_params=draft_params)
 
 
 class Monolith(Engine):
@@ -1008,13 +1083,30 @@ class Monolith(Engine):
 
     def _run(self, batch, audio_ctx, temperature=None, generator=None):
         t0 = time.perf_counter()
-        enc_out = self._encode(batch, audio_ctx)
-        out = self._to_host(self._decode(enc_out, temperature, generator))
+        samples = self._place_batch(batch)
+        enc_out = self._encoder_output(samples, audio_ctx)
+        draft_enc = None
+        if self._draft_params is not None and not self._draft_share_encoder:
+            # A draft of another frontend geometry (e.g. tiny's 80 mel bins
+            # under large-v3's 128): its own mel and encoder on the same
+            # samples, the same crop.
+            draft_enc = self._encoder_output(samples, audio_ctx, draft=True)
+        out = self._to_host(self._decode(enc_out, temperature, generator, draft_enc=draft_enc))
         return (*out, None, (time.perf_counter() - t0) * 1e3, enc_out)
 
 
 class EncDec(Engine):
     """Separate encode and decode stages (reference whisper.cpp:740-776)."""
+
+    def __init__(self, assets: _Assets, config: EngineConfig, **kw):
+        super().__init__(assets, config, **kw)
+        if self._draft_params is not None and not self._draft_share_encoder:
+            raise ValueError(
+                "EncDec with a draft of different frontend geometry is "
+                "unsupported (the decode stage has no samples to run the "
+                "draft encoder on); use MONOLITH, or a Distil draft that "
+                "shares the target's encoder geometry"
+            )
 
     def _run(self, batch, audio_ctx, temperature=None, generator=None):
         t0 = time.perf_counter()
@@ -1033,10 +1125,15 @@ def create_engine(
     vocab_bin: Optional[str] = None,
     seed: int = 0,
     device: Union[str, torch.device] = "cuda",
+    draft_params: Optional[Params] = None,
 ) -> Engine:
     """Factory (reference create_engine, whisper.cpp:778-790). ``params``
-    None → random weights from ``seed``."""
+    None → random weights from ``seed``. ``draft_params``: weights for
+    ``config.draft_model`` (None: a random draft; the output is the
+    target's greedy decode all the same, see ``decode/speculative.py``)."""
     cls = Monolith if EngineType(engine_type) == EngineType.MONOLITH else EncDec
     if params is None:
-        return cls.from_random(config, seed=seed, device=device)
-    return cls.from_assets(params, config, vocab_bin=vocab_bin, device=device)
+        return cls.from_random(config, seed=seed, device=device, draft_params=draft_params)
+    return cls.from_assets(
+        params, config, vocab_bin=vocab_bin, device=device, draft_params=draft_params
+    )

@@ -1,6 +1,7 @@
 from whisper_tpu_torch.models.decoder import (
     decoder_prefill,
     decoder_step,
+    decoder_window,
     init_kv_cache,
     precompute_cross_kv,
 )
@@ -20,4 +21,5 @@ __all__ = [
     "precompute_cross_kv",
     "decoder_prefill",
     "decoder_step",
+    "decoder_window",
 ]

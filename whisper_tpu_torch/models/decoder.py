@@ -3,13 +3,14 @@
 Counterpart of ``whisper_tpu/models/decoder.py``: ``init_kv_cache``,
 ``precompute_cross_kv``, ``_decoder_forward`` for a shared (scalar)
 position with beam widths or per-row positions (T = 1, the slot pool of
-``decode/continuous.py``), ``decoder_prefill``, ``decoder_step``, and the
+``decode/continuous.py``; T > 1, the speculative verify window of
+``decoder_window``), ``decoder_prefill``, ``decoder_step``, and the
 beam step modes: ``plane_cache_from_prefill`` + ``decoder_step_fused``
 ("hybrid", through K2, or K2′ on a rank of a data-parallel mesh) and
-``init_lineage`` + ``decoder_step_lineage`` ("lineage"). ``merged_read``,
-``decoder_window`` and the segment-growth helpers (``grow_plane_cache``,
-``grow_lineage``) are not ported: the port preallocates one cache of
-``p_len + max_new`` positions.
+``init_lineage`` + ``decoder_step_lineage`` ("lineage"). ``merged_read``
+and the segment-growth helpers (``grow_plane_cache``, ``grow_lineage``)
+are not ported: the port preallocates one cache of ``p_len + max_new``
+positions.
 
 Layouts are the JAX ones: self-attention cache ``{"k"/"v": [L, B, ctx, H,
 Dh]}``, cross-attention K/V ``{"k"/"v": [L, B, H, Dh, n_audio_ctx]}``
@@ -92,33 +93,50 @@ def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype) -> t
 
 
 def scatter_rows(dst: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
-    """``dst[b, pos[b]] = new[b]`` for every row b, cast to ``dst``'s dtype,
-    in place. ``dst`` [B, ctx, ...] (last dim contiguous), ``pos`` [B]
-    int64, ``new`` [B, ...]. The write goes through byte views of both
-    sides: the same bytes for every dtype, fp8 included, where CUDA's
-    ``index_put_`` may lack a float8 kernel."""
-    rows = torch.arange(dst.shape[0], device=dst.device)
+    """``dst[b, pos[b]] = new[b]`` for every row b (``pos`` [B]), or
+    ``dst[b, pos[b, i]] = new[b, i]`` (``pos`` [B, T]), cast to ``dst``'s
+    dtype, in place. ``dst`` [B, ctx, ...] (last dim contiguous), ``pos``
+    int64, ``new`` [B, ...] or [B, T, ...]. The write goes through byte
+    views of both sides: the same bytes for every dtype, fp8 included, where
+    CUDA's ``index_put_`` may lack a float8 kernel."""
+    rows = torch.arange(dst.shape[0], device=dst.device).view(-1, *([1] * (pos.dim() - 1)))
     dst.view(torch.uint8)[rows, pos] = new.to(dst.dtype).contiguous().view(torch.uint8)
 
 
 def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype):
-    """The per-row form of :func:`_decoder_forward` (T = 1): row ``b``'s
-    token sits at ``pos[b]``. The embedding gathers each row's position;
-    each row's new K/V is written at its own position by index; the read
-    covers the whole cache, and a per-row mask leaves keys at positions
-    ``<= pos[b]``, as JAX's per-row branch does. Positions must lie in the
-    cache (the slot pool clamps its inactive rows')."""
-    if tokens.shape[1] != 1:
-        raise ValueError("per-row positions take one token per row (T = 1)")
+    """The per-row form of :func:`_decoder_forward`: row ``b``'s tokens sit
+    at ``pos[b] + i``, i < T. The embedding gathers each row's positions,
+    clamped to the table's last row (a speculative window may reach past
+    ``n_text_ctx`` into slack rows whose tokens are never emitted: JAX's
+    docstring says its gather clips there, and an unclamped gather would
+    raise); each row's new K/V rows are written at its own positions by
+    index; the read covers the whole cache, and a per-row mask leaves query
+    ``i`` the keys at positions ``<= pos[b] + i``, as JAX's per-row branch
+    does. Positions written must lie in the cache (the slot pool clamps its
+    inactive rows'; the speculative decode sizes its cache with slack)."""
+    t = tokens.shape[1]
     ctx = cache["k"].shape[2]
     pos = pos.to(device=tokens.device, dtype=torch.long)
-    x = (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos][:, None]).to(compute_dtype)
-    k_pos = torch.arange(ctx, device=x.device)[None, :]
-    mask = torch.where(k_pos <= pos[:, None], 0.0, NEG_INF).to(compute_dtype)[:, None, None, :]
+    table = dec["pos_emb"]
+    if t == 1:
+        row_pos = pos
+        pos_emb = table[pos.clamp(max=table.shape[0] - 1)][:, None]
+    else:
+        row_pos = pos[:, None] + torch.arange(t, device=pos.device)[None, :]  # [B, T]
+        pos_emb = table[row_pos.clamp(max=table.shape[0] - 1)]
+    x = (layers.embed(dec["tok_emb"], tokens) + pos_emb).to(compute_dtype)
+    k_pos = torch.arange(ctx, device=x.device)
+    q_pos = row_pos[:, None] if t == 1 else row_pos  # [B, T]
+    mask = torch.where(k_pos[None, None, :] <= q_pos[:, :, None], 0.0, NEG_INF)
+    mask = mask.to(compute_dtype)[:, None]  # [B, 1, T, ctx]
 
     def self_kv(layer, q, k_new, v_new):
-        scatter_rows(cache["k"][layer], pos, k_new[:, 0])
-        scatter_rows(cache["v"][layer], pos, v_new[:, 0])
+        if t == 1:
+            scatter_rows(cache["k"][layer], pos, k_new[:, 0])
+            scatter_rows(cache["v"][layer], pos, v_new[:, 0])
+        else:
+            scatter_rows(cache["k"][layer], row_pos, k_new)
+            scatter_rows(cache["v"][layer], row_pos, v_new)
         return q, cache["k"][layer], cache["v"][layer], mask
 
     return _layers(dec, x, dims.n_text_head, cross_kv, 1, self_kv), cache
@@ -160,7 +178,7 @@ def _decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int64
     pos_offset: Union[int, torch.Tensor],  # absolute position of tokens[:, 0]:
-    # an int shared by all rows, or [B] integers, one per row (T = 1)
+    # an int shared by all rows, or [B] integers, one per row
     cache: KVCache,
     cross_kv: KVCache,
     dims: ModelDims,
@@ -203,6 +221,23 @@ def _decoder_forward(
         return q, cache["k"][layer, :, :end], cache["v"][layer, :, :end], mask
 
     return _layers(dec, x, dims.n_text_head, cross_kv, beam_width, self_kv), cache
+
+
+def decoder_window(
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] — T consecutive tokens per row
+    pos: torch.Tensor,  # [B] — absolute position of tokens[:, 0], per row
+    cache: KVCache,
+    cross_kv: KVCache,
+    dims: ModelDims,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Multi-token forward at per-row absolute positions: the speculative
+    verify pass (``decode/speculative.py``), one target forward that scores
+    a whole window of draft proposals and writes their K/V rows in place.
+    Row b's window covers positions ``pos[b] .. pos[b] + T - 1``; the caller
+    keeps them inside the cache. Returns (logits [B, T, V] f32, cache)."""
+    return _decoder_forward(params, tokens, pos, cache, cross_kv, dims, compute_dtype)
 
 
 def decoder_prefill(

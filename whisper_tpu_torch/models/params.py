@@ -130,7 +130,8 @@ def to_device(params: Params, device: torch.device | str) -> Params:
 
 def _tensor_from_numpy(x) -> torch.Tensor:
     x = np.array(x)  # a copy: the caller's array stays its own
-    if x.dtype.name == "bfloat16":  # ml_dtypes bf16: same bits as torch's
+    if x.dtype.name == "bfloat16" or x.dtype == np.dtype("V2"):
+        # ml_dtypes bf16, or bf16 as an npz holds it: same bits as torch's
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
     if x.dtype.name == "float8_e4m3fn":  # ml_dtypes fp8: same bits as torch's
         return torch.from_numpy(x.view(np.uint8)).view(torch.float8_e4m3fn)
