@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero before the last line:
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes and a few others, with the tolerance stated (K1: 4 bf16
    ulps, at T = 1, 100, 256, 512, 1024, 1499 and 1500, Dh = 32 and 64,
-   ``unbind`` views, and f32 at 1e-5; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
+   ``unbind`` views; its f32 body at 1e-5 × max(1, max|ref|), at T = 1,
+   100, 256, 1499 and 1500, Dh = 32 at T = 64, 300 and 1500, ``unbind``
+   views; K2 and K4 move bytes: bitwise; K3: planes bitwise, attention 4 bf16
    ulps or 1e-5 in f32, and JAX's tolerances against
    ``reference_gather_attend``, with f32 and bf16 new rows, which the
    kernel converts itself: one kernel per call (profiler), timed with bf16
@@ -22,9 +24,10 @@ Phases, in order; any failure exits non-zero before the last line:
    composite, labelled) beside the bound;
    K1 and ``scaled_dot_product_attention`` also at T = 256, 512, 1024 and
    1500 at large-v3 width (batch 4, 20 heads), one line per T, and at a
-   ``tiny`` draft encoder's shape [4, 1500, 6, 64] in bf16 and f32 (phase
-   8a's draft of its own frontend) beside its plain version, the library
-   call and the bound.
+   ``tiny`` draft encoder's shape [4, 1500, 6, 64] in bf16 (phase 8a's
+   draft of its own frontend) beside its plain version, the library call
+   and the bound; the f32 body likewise at both shapes the f32 paths give
+   it, [4, 1500, 6, 64] and large-v3's [4, 1500, 20, 64].
    K5's path is its entry point on the main path's batch: one launch. K2′
    (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
    a batch of 4 on 2 ranks, with global source rows. K2 and K2′ with new
@@ -39,6 +42,7 @@ Phases, in order; any failure exits non-zero before the last line:
    against its plain version at each.
 
     python3 chip_smoke.py --sweep-tree DIR   # the K2 and K3 sweeps and K5's times alone, DIR's kernels
+    python3 chip_smoke.py --k1-tree DIR      # K1's f32 cases and times alone, DIR's kernel
 4. Greedy main path at full width: ``create_engine(MONOLITH, EngineConfig(
    model="large-v3", max_new_tokens=64), device="cuda")`` with random
    weights from a seed; ``transcribe_batch`` of 4 utterances of different
@@ -139,7 +143,8 @@ Phases, in order; any failure exits non-zero before the last line:
    weights: every draft accepted, ⌈63 / 5⌉ rounds when a row runs to the
    budget), a random ``distil-large-v3`` (shares the target's encoder
    output: K1 32) and a random ``tiny`` (its own mel and encoder: K1 32 +
-   4). Tokens must equal greedy's exactly; rounds and acceptance printed.
+   4). Tokens must equal greedy's exactly; rounds and acceptance printed,
+   and the f32 mel + encoder's ms per batch (K1's f32 body: 32 launches).
 8b. The default bf16 config on phase 4's weights with a random
    ``distil-large-v3`` draft, timed beside greedy in the same phase: rounds,
    acceptance, rows equal to phase 4's tokens. bf16 window and step logits
@@ -265,88 +270,160 @@ def bf16_tolerance(ref_max: float) -> float:
     return 4.0 * 2.0 ** (np.floor(np.log2(max(ref_max, 2.0**-20))) - 7)
 
 
+K1_CASES = [
+    ("large-v3 encoder", (4, 1500, 20, 64), "bfloat16"),
+    ("tiny encoder", (4, 1500, 6, 64), "bfloat16"),
+    # The mask check: 28 of the last K/V tile's 128 keys lie past T (one
+    # ragged tile). At T=1500, 36 of 1536 keys are masked, too few for
+    # the tolerance to catch a kernel that gives them weight.
+    ("ragged T=100", (4, 100, 20, 64), "bfloat16"),
+    ("one key T=1", (4, 1, 20, 64), "bfloat16"),
+    ("bucket T=256 (no mask)", (4, 256, 20, 64), "bfloat16"),
+    ("bucket T=512 (no mask)", (4, 512, 20, 64), "bfloat16"),
+    ("bucket T=1024 (no mask)", (4, 1024, 20, 64), "bfloat16"),
+    ("ragged T=1499", (4, 1499, 20, 64), "bfloat16"),
+    ("dev encoder, Dh=32", (4, 1500, 2, 32), "bfloat16"),
+    ("Dh=32, T=64", (4, 64, 4, 32), "bfloat16"),
+    ("unbind views", (2, 300, 4, 64), "bfloat16 strided"),
+    ("unbind views, Dh=32", (2, 300, 4, 32), "bfloat16 strided"),
+    # f32: the f32 body's 64-key tiles leave 36 keys of T=100's one tile
+    # and 28 of T=1500's last past T.
+    ("large-v3 encoder f32", (4, 1500, 20, 64), "float32"),
+    ("tiny encoder f32", (2, 1500, 6, 64), "float32"),
+    ("f32 one key T=1", (4, 1, 20, 64), "float32"),
+    ("f32 ragged T=100", (4, 100, 20, 64), "float32"),
+    ("f32 bucket T=256 (no mask)", (4, 256, 20, 64), "float32"),
+    ("f32 ragged T=1499", (4, 1499, 20, 64), "float32"),
+    ("f32 dev encoder, Dh=32", (4, 1500, 2, 32), "float32"),
+    ("f32 Dh=32, T=64", (4, 64, 4, 32), "float32"),
+    ("f32 Dh=32, T=300", (2, 300, 2, 32), "float32"),
+    ("f32 unbind views", (2, 300, 4, 64), "float32 strided"),
+    ("f32 unbind views, Dh=32", (2, 300, 4, 32), "float32 strided"),
+]
+
+
+def k1_inputs(torch, gen, shape, dtype: str) -> tuple:
+    """q, k, v on the card: three tensors, or (``strided``) the ``unbind``
+    views of one fused [B, T, 3, H, Dh] projection."""
+    dt = getattr(torch, dtype.split()[0])
+    if dtype.endswith("strided"):
+        b, t, h, dh = shape
+        return torch.randn((b, t, 3, h, dh), generator=gen, device="cuda").to(dt).unbind(2)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
+
+
+def k1_check(torch, attention, q, k, v, name: str) -> tuple:
+    """One launch of K1 against its plain version, with the tolerance of
+    phase 3 (bf16: 4 ulps at the output's largest magnitude; f32: 1e-5 ×
+    max(1, max|ref|)). Fails unless the wrapper launched once and agrees.
+    Returns (max_abs_err, max|ref|, tolerance)."""
+    before = attention.launches
+    out = attention.fused_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    if attention.launches != before + 1:
+        fail(f"K1 wrapper did not launch its kernel once at {name}")
+    ref = attention.fused_self_attention_reference(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = bf16_tolerance(ref_max) if q.dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+    if not bool(torch.isfinite(out).all()) or err > tol:
+        fail(f"K1 disagrees with its plain version at {name} {list(q.shape)} {q.dtype}: {err} > {tol}")
+    return err, ref_max, tol
+
+
+def k1_cases(torch, attention, gen, dtypes=("bfloat16", "float32")) -> dict:
+    """Every case of :data:`K1_CASES` whose dtype is in ``dtypes``, checked
+    (:func:`k1_check`) and timed beside its bound. Returns {name: (err,
+    kernel ms)}."""
+    out = {}
+    for name, shape, dtype in K1_CASES:
+        if dtype.split()[0] not in dtypes:
+            continue
+        q, k, v = k1_inputs(torch, gen, shape, dtype)
+        err, ref_max, tol = k1_check(torch, attention, q, k, v, name)
+        kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
+        bound, bound_by = attention_bound_ms(*shape, q.element_size())
+        log(f"  K1 {name} {list(shape)} {dtype}: max_abs_err {err:.3g} (max|ref| {ref_max:.3g}, "
+            f"rel {err / ref_max:.3g}, tol {tol:.3g}) kernel {kern_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        out[name] = (err, kern_ms)
+    return out
+
+
+def k1_timed(torch, attention, gen, shape, dtype: str) -> dict:
+    """K1 at one shape: checked, then the kernel, its plain version and
+    ``scaled_dot_product_attention`` timed in this run beside the bound.
+    In f32 the library call is PyTorch's memory-efficient kernel, which
+    runs split TF32 (``OpMultiplyAddFastF32``) on the tensor cores at f32
+    accuracy; the bound is the f32 FMA rate, the kernel's own route."""
+    import torch.nn.functional as F
+
+    q, k, v = k1_inputs(torch, gen, shape, dtype)
+    err, _, tol = k1_check(torch, attention, q, k, v, f"{dtype} {list(shape)}")
+    kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
+    plain_ms = time_ms(lambda: attention.fused_self_attention_reference(q, k, v))
+    lib_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    )
+    bound, bound_by = attention_bound_ms(*shape, q.element_size())
+    flops = 4.0 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
+    plan, extra = "", {}
+    if dtype == "float32" and hasattr(attention, "f32_plan"):  # an older tree's K1 has none
+        warps, per_sm, regs = attention.f32_plan(*shape)
+        plan = f" ({warps} warps per CTA, {per_sm} CTAs per SM, {regs} registers)"
+        extra = {"warps": warps, "ctas_per_sm": per_sm, "registers": regs}
+    log(f"  K1 {list(shape)} {dtype}{plan}: max_abs_err {err:.3g} (tol {tol:.3g}); kernel {kern_ms:.4f} ms "
+        f"({flops / kern_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); kernel / library {kern_ms / lib_ms:.3f}, "
+        f"bound / kernel {bound / kern_ms:.3f}")
+    return {"shape": list(shape), "dtype": dtype, "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by, **extra}
+
+
+TINY_ENC_SHAPE = (4, 1500, 6, 64)  # a tiny draft's encoder at phase 8a's batch
+K1_F32_SHAPES = (TINY_ENC_SHAPE, (4, 1500, 20, 64))  # and large-v3's f32 encoder
+
+
+def k1_f32(torch, attention, gen) -> dict:
+    """K1's f32 body at the shapes the f32 paths give it (phase 8a: the
+    tiny draft's encoder and large-v3's), each timed beside its plain
+    version, the library call and the bound (:func:`k1_timed`). The record
+    is large-v3's, with both shapes under ``per_shape``."""
+    per_shape = [k1_timed(torch, attention, gen, shape, "float32") for shape in K1_F32_SHAPES]
+    return {"name": "flash_fwd_f32", "route": "cuda", "source": "whisper_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "whisper_tpu/ops/attention.py:33", **per_shape[-1], "launches": None,
+            "per_shape": per_shape}
+
+
 def phase_kernels(torch, attention) -> dict:
-    """K1 against its plain version at the main path's shape (the record,
-    also timed beside the plain version and ``scaled_dot_product_attention``),
-    at the encoder's ``audio_ctx`` buckets and ragged lengths (T = 1, 100,
-    256, 512, 1024, 1499 at 20 heads), at Dh = 32, on ``unbind`` views of
-    one [B, T, 3, H, Dh] projection, and in f32. Then one line per T ∈
-    {256, 512, 1024, 1500} at large-v3 width (batch 4, 20 heads): K1,
-    ``scaled_dot_product_attention`` and the bound."""
+    """K1 against its plain version at every case of :data:`K1_CASES` (the
+    encoder's ``audio_ctx`` buckets and ragged lengths at 20 heads, Dh =
+    32, ``unbind`` views of one [B, T, 3, H, Dh] projection, in bf16 and
+    f32); the record is the main path's shape in bf16, timed beside the
+    plain version and ``scaled_dot_product_attention``. Then one line per
+    T ∈ {256, 512, 1024, 1500} at large-v3 width (batch 4, 20 heads): K1,
+    ``scaled_dot_product_attention`` and the bound; the tiny draft's shape
+    in bf16; and the f32 body at both f32 shapes (:func:`k1_f32`)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        ("large-v3 encoder", (4, 1500, 20, 64), torch.bfloat16),
-        ("tiny encoder", (4, 1500, 6, 64), torch.bfloat16),
-        # The mask check: 28 of the last K/V tile's 128 keys lie past T (one
-        # ragged tile). At T=1500, 36 of 1536 keys are masked, too few for
-        # the tolerance to catch a kernel that gives them weight.
-        ("ragged T=100", (4, 100, 20, 64), torch.bfloat16),
-        ("one key T=1", (4, 1, 20, 64), torch.bfloat16),
-        ("bucket T=256 (no mask)", (4, 256, 20, 64), torch.bfloat16),
-        ("bucket T=512 (no mask)", (4, 512, 20, 64), torch.bfloat16),
-        ("bucket T=1024 (no mask)", (4, 1024, 20, 64), torch.bfloat16),
-        ("ragged T=1499", (4, 1499, 20, 64), torch.bfloat16),
-        ("dev encoder, Dh=32", (4, 1500, 2, 32), torch.bfloat16),
-        ("Dh=32, T=64", (4, 64, 4, 32), torch.bfloat16),
-        ("unbind views", (2, 300, 4, 64), "strided"),
-        ("unbind views, Dh=32", (2, 300, 4, 32), "strided"),
-        ("tiny encoder f32", (2, 1500, 6, 64), torch.float32),
-        ("f32 Dh=32, T=300", (2, 300, 2, 32), torch.float32),
-    ]
-    record = None
-    for name, shape, dtype in cases:
-        if dtype == "strided":  # q, k, v as views of one fused projection
-            b, t, h, dh = shape
-            dtype = torch.bfloat16
-            x = torch.randn((b, t, 3, h, dh), generator=gen, device="cuda").to(dtype)
-            q, k, v = x.unbind(2)
-        else:
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-        before = attention.launches
-        out = attention.fused_self_attention(q, k, v)
-        torch.cuda.synchronize()
-        if attention.launches != before + 1:
-            fail(f"K1 wrapper did not launch its kernel once at {name}")
-        ref = attention.fused_self_attention_reference(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        ref_max = ref.float().abs().max().item()
-        tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
-        ok = bool(torch.isfinite(out).all()) and err <= tol
-        kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
-        bound, bound_by = attention_bound_ms(*shape, q.element_size())
-        log(
-            f"  K1 {name} {list(shape)} {str(dtype)[6:]}: max_abs_err {err:.3g} "
-            f"(max|ref| {ref_max:.3g}, rel {err / ref_max:.3g}, tol {tol:.3g}) "
-            f"kernel {kern_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})"
-        )
-        if not ok:
-            fail(f"K1 disagrees with its plain version at {name}: {err} > {tol}")
-        if record is None:  # the main path's shape: also time plain and library
-            plain_ms = time_ms(lambda: attention.fused_self_attention_reference(q, k, v))
-            lib_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-                )
-            )
-            host_ms = host_ms_per_call(lambda: attention.fused_self_attention(q, k, v))
-            log(f"    plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
-                f"the wrapper's host time per call (checks, three tensor-map encodes, ctypes, "
-                f"allocation) {host_ms:.4f} ms")
-            record = {
-                "name": "flash_attn_fwd", "route": "cuda",
-                "source": "whisper_tpu_torch/csrc/flash_attn_fwd.cu",
-                "replaces": "whisper_tpu/ops/attention.py:33",
-                "launches": None, "max_abs_err": err, "ms": kern_ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": lib_ms, "shape": list(shape), "dtype": "bfloat16",
-                "host_ms": host_ms,
-            }
+    errs = k1_cases(torch, attention, gen)
+    shape = (4, 1500, 20, 64)
+    q, k, v = k1_inputs(torch, gen, shape, "bfloat16")
+    main = k1_timed(torch, attention, gen, shape, "bfloat16")
+    host_ms = host_ms_per_call(lambda: attention.fused_self_attention(q, k, v))
+    log(f"    the wrapper's host time per call (checks, three tensor-map encodes, ctypes, "
+        f"allocation) {host_ms:.4f} ms")
+    record = {
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "whisper_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "whisper_tpu/ops/attention.py:33",
+        "launches": None, **main, "max_abs_err": max(errs["large-v3 encoder"][0], main["max_abs_err"]),
+        "host_ms": host_ms,
+    }
     per_t = []
     for t in (256, 512, 1024, 1500):
         shape = (4, t, 20, 64)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        q, k, v = k1_inputs(torch, gen, shape, "bfloat16")
         kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
         lib_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
@@ -358,41 +435,63 @@ def phase_kernels(torch, attention) -> dict:
             f"kernel / library {kern_ms / lib_ms:.3f}")
         per_t.append({"t": t, "ms": kern_ms, "library_ms": lib_ms, "bound_ms": bound})
     record["per_t"] = per_t
-    record["draft_shape"] = k1_draft_shape(torch, attention, gen)
+    record["draft_shape"] = k1_timed(torch, attention, gen, TINY_ENC_SHAPE, "bfloat16")
+    record["f32"] = k1_f32(torch, attention, gen)
     return record
 
 
-def k1_draft_shape(torch, attention, gen) -> list:
-    """K1 at a ``tiny`` draft encoder's shape, [4, 1500, 6, 64] (phase 8a's
-    draft of its own frontend, batch 4), in bf16 and f32: against its
-    plain version with the tolerance of phase 3, timed beside the plain
-    version, ``scaled_dot_product_attention`` and the bound."""
-    import torch.nn.functional as F
+def k1_tree(tree: str) -> None:
+    """``--k1-tree DIR``: only K1's f32 body, with the ``whisper_tpu_torch``
+    of the checkout at DIR (its kernel built there), so that two trees
+    compare on one card: every f32 case of :data:`K1_CASES` checked and
+    timed, then :func:`k1_f32`; the last line is the JSON object of the
+    f32 record."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
 
-    out = []
-    shape = (4, 1500, 6, 64)
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-        got = attention.fused_self_attention(q, k, v)
-        ref = attention.fused_self_attention_reference(q, k, v)
-        err = (got.float() - ref.float()).abs().max().item()
-        ref_max = ref.float().abs().max().item()
-        tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
-        if not bool(torch.isfinite(got).all()) or err > tol:
-            fail(f"K1 disagrees with its plain version at the draft's shape {shape} {dtype}: {err} > {tol}")
-        kern_ms = time_ms(lambda: attention.fused_self_attention(q, k, v))
-        plain_ms = time_ms(lambda: attention.fused_self_attention_reference(q, k, v))
-        lib_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        )
-        bound, bound_by = attention_bound_ms(*shape, q.element_size())
-        name = str(dtype)[6:]
-        log(f"  K1 at the tiny draft's shape {list(shape)} {name}: max_abs_err {err:.3g} (tol {tol:.3g}); "
-            f"kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
-        out.append({"shape": list(shape), "dtype": name, "max_abs_err": err, "ms": kern_ms,
-                    "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by})
-    return out
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    from whisper_tpu_torch.ops import attention, build
+
+    for name, (secs, ptxas) in build.build([attention.KERNEL]).items():
+        usage = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"  {name}.cu: nvcc {secs:.2f} s; " + " | ".join(usage))
+    log(f"K1 f32 of {os.path.dirname(os.path.dirname(attention.__file__))}; {card_line()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_cases(torch, attention, gen, dtypes=("float32",))
+    record = k1_f32(torch, attention, gen)
+    record["mel_encoder_ms"] = f32_encoder_ms(torch, attention)
+    print(json.dumps(record))
+
+
+def f32_encoder_ms(torch, attention, eng=None) -> float:
+    """Phase 8a's f32 mel + encoder (large-v3, TF32 off, phase 4's batch;
+    ``eng``, or a new engine of random weights) on the synchronised host
+    clock, median of 3 after a warm-up; K1 must launch 32 times per
+    encode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if eng is None:
+        from whisper_tpu_torch.config import EngineConfig
+        from whisper_tpu_torch.engine import EngineType, create_engine
+
+        eng = create_engine(EngineType.MONOLITH, EngineConfig(model="large-v3", dtype="float32"), seed=0,
+                            device="cuda")
+    host, _, _ = eng._prepare_batch(main_path_batch()[1])
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        before = attention.launches
+        t0 = time.perf_counter()
+        eng._encode(host, eng._resolve_audio_ctx(host))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if attention.launches - before != LARGE_V3_ENC_LAYERS:
+            fail(f"K1 launched {attention.launches - before} times in one f32 encode")
+    ms = statistics.median(times[1:])
+    log(f"  8a large-v3 f32 mel+encoder, batch 4: {ms:.1f} ms (median of "
+        f"{', '.join(f'{x:.1f}' for x in times[1:])} after a warm-up; host clock, synchronised)")
+    return ms
 
 
 def _as_bytes(t):
@@ -2137,7 +2236,8 @@ def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict
     total = len(base._prompt) + base._max_new
     log(f"  8a greedy f32: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; lengths "
         f"{[r.length for r in greedy]} of {total}; launches {n}")
-    record["8a_greedy"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n}
+    record["8a_greedy"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n,
+                           "mel_encoder_ms": f32_encoder_ms(torch, kernels[0], base)}
     drafts = (
         ("self-draft", "large-v3", base.assets.params, LARGE_V3_ENC_LAYERS),
         ("distil-large-v3", "distil-large-v3", None, LARGE_V3_ENC_LAYERS),
@@ -2348,6 +2448,8 @@ def sweep_tree(tree: str) -> None:
 def main() -> None:
     if sys.argv[1:2] == ["--sweep-tree"]:
         return sweep_tree(sys.argv[2])
+    if sys.argv[1:2] == ["--k1-tree"]:
+        return k1_tree(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -2458,6 +2560,7 @@ def main() -> None:
         }
         rec["speculative_launches"] = {key: r["launches"][name] for key, r in spec.items()}
         rec["cli_launches"] = {key: r["launches"][name] for key, r in cli.items()}
+    k1["f32"]["launches"] = spec["8a_greedy"]["launches"]["K1"]  # the f32 main path: 8a's greedy batch
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))

@@ -66,6 +66,18 @@ def test_bf16_kernel_across_lengths(card, shape):
     _check_case(card, shape, torch.bfloat16)
 
 
+# The f32 body (64-key tiles) at large-v3's 20 heads across lengths: one
+# key (T = 1), one ragged tile (100: 36 keys past T), whole tiles (256),
+# and a ragged last tile (1499, 1500); Dh = 32 (the dev dims) at one tile
+# and at 1500.
+@pytest.mark.parametrize(
+    "shape",
+    [(2, t, 20, 64) for t in (1, 100, 256, 1499, 1500)] + [(2, 64, 4, 32), (2, 1500, 4, 32)],
+)
+def test_f32_kernel_across_lengths(card, shape):
+    _check_case(card, shape, torch.float32)
+
+
 def _check_case(card, shape, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(3))
@@ -80,8 +92,17 @@ def _check_case(card, shape, dtype):
 
 @pytest.mark.parametrize("dh", [64, 32])
 def test_strided_inputs(card, dh):
+    _check_strided(card, dh, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 32])
+def test_f32_strided_inputs(card, dh):
+    _check_strided(card, dh, torch.float32)
+
+
+def _check_strided(card, dh, dtype):
     # q, k, v as views of one fused [B, T, 3, H, Dh] projection.
-    x = torch.randn(2, 300, 3, 4, dh, device=card).to(torch.bfloat16)
+    x = torch.randn(2, 300, 3, 4, dh, device=card).to(dtype)
     q, k, v = x.unbind(2)
     before = ta.launches
     out = ta.fused_self_attention(q, k, v)

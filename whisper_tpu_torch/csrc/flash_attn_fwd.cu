@@ -5,8 +5,8 @@
 // softmax(Q K^T / sqrt(Dh)) V for q, k, v of shape [B, T, H, Dh] (read
 // through their strides, no transpose copies); output [B, T, H, Dh] in the
 // input dtype. Scores, the running max and sum (online softmax) and the
-// output accumulators are f32; the unnormalised weights are rounded to bf16
-// for the value product.
+// output accumulators are f32; the bf16 body rounds the unnormalised
+// weights to bf16 for the value product.
 //
 // Bound on an H100 SXM: compute. The two products do 4*B*H*T^2*Dh FLOP: at
 // large-v3 (T = 1500, H = 20, Dh = 64) and B = 4 that is 46.1 GFLOP per
@@ -53,8 +53,36 @@
 // 128, gives its keys past T weight zero (score -inf), and query rows past
 // T are never stored.
 //
-// The f32 variant (parity runs) walks K/V tiles of 64 keys with one thread
-// per query row and plain FMA.
+// Design of the f32 body (the parity dtype; FMA on the CUDA cores, no
+// TF32). Its bound is the 4*B*H*T^2*Dh FLOP at 67 TFLOP/s: 0.688 ms at
+// large-v3's [4, 1500, 20, 64], 0.206 ms at a tiny draft's [4, 1500, 6, 64];
+// the bytes need 0.037 and 0.011 ms.
+// - Register tiles: CTAs of 4-10 warps of one (head, batch), 16 query rows
+//   per warp. A lane holds a 4-row x 8-key tile of S = Q K^T and a 4-row x
+//   8-column tile of O (Dh = 64), so a 16-byte load of Q feeds 32 FMAs and
+//   one of K feeds 16; the 8 lanes of a quarter-warp share their 4 rows.
+// - Online softmax once per 64-key tile: the row max in three shuffles, one
+//   exp2 per score with scale * log2 e folded into the FMA before it, O and
+//   the row sum rescaled once per tile. The running max and sum live in
+//   shared memory (registers hold S and O). The weights reach the lanes
+//   that multiply them with V through the warp's own slice of shared
+//   memory, 32 keys at a time (__syncwarp only).
+// - K and V tiles of 64 keys arrive by bulk copies (cp.async.bulk, one per
+//   row, completing on an mbarrier per operand): K(n+1) loads while tile
+//   n's softmax and P V run, V(n+1) while tile n+1's Q K^T runs. Keys past
+//   T get weight 0; V starts as zeros, so a row that is never copied times
+//   0 stays 0. Query rows past T are never stored.
+// - The shared-memory pipe, not the FMA rate, bounds it: a warp's 16-byte
+//   load of K or V moves 512 distinct bytes (rows padded to Dh + 4 floats,
+//   so no bank conflicts), 4 cycles of the SM's 128 bytes per cycle, and
+//   128 FMAs of a warp need 8 of them besides 4 loads of Q or P. With four
+//   schedulers issuing FMAs, the loads take longer than the FMAs; the body
+//   runs near half of the FMA peak (chip_smoke.py phase 3 times it).
+// - Waves: builds at 96 and 128 registers (5 or 4 warps per scheduler);
+//   plan_f32 picks the build and the warps per CTA for the shape. At
+//   [4, 1500, 6, 64]: 96 registers, 9 warps, two CTAs on every SM, one wave
+//   of 264 CTAs (the 128-register build would leave a second wave of 24).
+//   At [4, 1500, 20, 64]: 128 registers, 5 warps, three CTAs per SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (whisper_tpu_torch/ops/build.py).
@@ -501,68 +529,251 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   }
 }
 
-// ---- f32 variant: one thread per query row, FMA ---------------------------
+// ---- f32 body: register-tiled FMA, one exponential per score --------------
 
-constexpr int F32_ROWS = 64;  // query rows per CTA
-constexpr int F32_KEYS = 64;  // keys per K/V tile
+constexpr int F32_KEYS = 64;       // keys per K/V tile
+constexpr int F32_HALF = 32;       // keys per exchange of the weights P
+constexpr int F32_WARP_ROWS = 16;  // query rows per warp: 4 groups of 4
+constexpr int F32_PSTRIDE = 20;    // floats per key of a warp's P: 16 rows + 4 of padding
+constexpr int F32_MIN_WARPS = 4;   // threads 0-63 copy K or V rows, the next 16 * warps Q rows
+constexpr int F32_MAX_WARPS = 10;
 
 template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
+struct F32Smem {
+  static constexpr int STRIDE = D + 4;                  // floats per Q or K row (padded)
+  static constexpr int K = 4;                           // float offsets; 0-3: two mbarriers
+  static constexpr int V = K + F32_KEYS * STRIDE;
+  static constexpr int Q = V + F32_KEYS * D;
+  static constexpr int P = F32_HALF * F32_PSTRIDE;      // floats of one warp's P
+  static constexpr int ML = 2 * F32_WARP_ROWS;          // a warp's running max and sum per row
+  static constexpr int bytes(int warps) {
+    return 4 * (Q + warps * (F32_WARP_ROWS * STRIDE + P + ML));
+  }
+};
+
+// Rows [r0, min(r0 + rows, T)) of one head into shared rows of `stride`
+// floats: one bulk copy per row, by threads 0 ... rows - 1, all completing
+// on `bar`; thread 0 also arms `bar` with the bytes (the phase completes
+// when all have landed, in whatever order arming and copies happen).
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const float* base,
+                                          int64_t src_stride, int r0, int rows, int T,
+                                          uint32_t bar, uint32_t extra_bytes = 0) {
+  const int valid = min(rows, T - r0);
+  if (threadIdx.x == 0) mbar_expect_tx(bar, valid * D * 4 + extra_bytes);
+  if (static_cast<int>(threadIdx.x) < valid) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_addr(dst + threadIdx.x * stride)),
+        "l"(base + static_cast<int64_t>(r0 + threadIdx.x) * src_stride), "r"(D * 4), "r"(bar)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One CTA: blockDim.x / 32 warps of 16 query rows each, of one (head,
+// batch). Lane = 8 rg + g: rg picks rows 4 rg ... 4 rg + 3 of the warp's
+// 16; g picks keys g + 8 jj (jj < 8) of a tile for S, and columns 4 g ...
+// 4 g + 3 (and 32 + 4 g ... for Dh = 64) of O. The 8 lanes of a row group
+// share its rows: three shuffles reduce a row, and the weights reach the
+// lanes that need them through the warp's own slice of shared memory.
+template <int D, int REGS>
+__global__ void __maxnreg__(REGS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int T, int64_t q_sb,
               int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
               int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_st,
-              int64_t o_sh, float scale) {
-  __shared__ float k_s[F32_KEYS][D];
-  __shared__ float v_s[F32_KEYS][D];
-
-  const int row = blockIdx.x * F32_ROWS + threadIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+              int64_t o_sh, float scale_log2) {
+  using L = F32Smem<D>;
+  constexpr int S = L::STRIDE;
+  constexpr int OC = D / 8;  // columns of O per lane
+  extern __shared__ __align__(16) float f32_smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, g = lane % 8;
+  const int rows = warps * F32_WARP_ROWS;
+  const int m0 = blockIdx.x * rows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const uint32_t k_full = smem_addr(f32_smem), v_full = k_full + 8;
+  float* ks = f32_smem + L::K;
+  float* vs = f32_smem + L::V;
+  float* qs = f32_smem + L::Q;
+  float* ps = qs + rows * S + warp * L::P;
+  // The running max and sum of the warp's rows, in shared memory (the
+  // registers hold S and O); the 8 lanes of a row group compute the same
+  // values and lane g = 0 stores them.
+  float* mw = qs + rows * S + warps * L::P + warp * L::ML + 4 * rg;
+  float* lw = mw + F32_WARP_ROWS;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
 
-  float qr[D];
-  float acc[D];
-  const bool live = row < T;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? q[b * q_sb + (int64_t)row * q_st + h * q_sh + d] : 0.f;
-    acc[d] = 0.f;
+  // V rows past T are never copied, and a zero weight times stale data
+  // must stay 0: V starts as zeros (later tiles leave real, finite rows).
+  for (int i = threadIdx.x; i < F32_KEYS * D / 4; i += blockDim.x) {
+    reinterpret_cast<float4*>(vs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float m_run = -INFINITY;
-  float l_run = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // zeros before the copies
+  __syncthreads();
+  // Phase n of k_full: K(n), with Q at n = 0; of v_full: V(n).
+  const int q_rows = min(rows, T - m0);
+  load_rows<D>(ks, S, kb, k_st, 0, F32_KEYS, T, k_full, q_rows * D * 4);
+  if (threadIdx.x >= F32_KEYS && static_cast<int>(threadIdx.x) < F32_KEYS + q_rows) {
+    const int r = threadIdx.x - F32_KEYS;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_addr(qs + r * S)),
+        "l"(q + b * q_sb + h * q_sh + static_cast<int64_t>(m0 + r) * q_st), "r"(D * 4), "r"(k_full)
+        : "memory");
+  }
+  load_rows<D>(vs, D, vb, v_st, 0, F32_KEYS, T, v_full);
 
-  for (int n0 = 0; n0 < T; n0 += F32_KEYS) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < F32_KEYS * D; c += blockDim.x) {
-      int r = c / D;
-      int d = c % D;
-      bool ok = n0 + r < T;
-      k_s[r][d] = ok ? kb[(int64_t)(n0 + r) * k_st + d] : 0.f;
-      v_s[r][d] = ok ? vb[(int64_t)(n0 + r) * v_st + d] : 0.f;
+  float acc[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int x = 0; x < OC; ++x) acc[i][x] = 0.f;
+  if (g == 0) {
+    *reinterpret_cast<float4*>(mw) = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    *reinterpret_cast<float4*>(lw) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncwarp();
+  const bool active = m0 + warp * F32_WARP_ROWS < T;  // a warp wholly past T only loads
+  const float* qw = qs + (warp * F32_WARP_ROWS + 4 * rg) * S;  // row i of the lane at qw + i S
+  const float* kw = ks + g * S;                                // key g + 8 jj at kw + 8 jj S
+  const int tiles = (T + F32_KEYS - 1) / F32_KEYS;
+
+  for (int n = 0; n < tiles; ++n) {
+    mbar_wait(k_full, n & 1);  // K(n) (and Q) landed
+    float s[4][8];
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+      // S = Q K^T, 4 values of d per step: 4 Q loads and 8 K loads feed
+      // 128 FMAs.
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        float4 qf[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[i] = lds4(qw + i * S + 4 * c);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float4 kf = lds4(kw + 8 * jj * S + 4 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][jj] = fmaf(qf[i].x, kf.x, s[i][jj]);
+            s[i][jj] = fmaf(qf[i].y, kf.y, s[i][jj]);
+            s[i][jj] = fmaf(qf[i].z, kf.z, s[i][jj]);
+            s[i][jj] = fmaf(qf[i].w, kf.w, s[i][jj]);
+          }
+        }
+      }
     }
-    __syncthreads();
-    const int n_keys = min(F32_KEYS, T - n0);
-    for (int j = 0; j < n_keys; ++j) {
-      float sc = 0.f;
+    __syncthreads();  // every warp has read K(n)
+    if (n + 1 < tiles) load_rows<D>(ks, S, kb, k_st, (n + 1) * F32_KEYS, F32_KEYS, T, k_full);
+    if (active) {
+      // Online softmax once per tile: keys past T get weight 0; the scale
+      // and log2 e go into the one FMA before each exp2.
+      const int n0 = n * F32_KEYS;
+      if (n0 + F32_KEYS > T) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) sc = fmaf(qr[d], k_s[j][d], sc);
-      sc *= scale;
-      float m_new = fmaxf(m_run, sc);
-      float alpha = expf(m_run - m_new);
-      float p = expf(sc - m_new);
-      l_run = l_run * alpha + p;
+        for (int jj = 0; jj < 8; ++jj)
+          if (n0 + g + 8 * jj >= T)
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_s[j][d], acc[d] * alpha);
-      m_run = m_new;
+            for (int i = 0; i < 4; ++i) s[i][jj] = -INFINITY;
+      }
+      const float4 m4 = lds4(mw), l4 = lds4(lw);
+      float m_run[4] = {m4.x, m4.y, m4.z, m4.w};
+      float l_run[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int jj = 1; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_run[i], mx);
+        const float alpha = ex2((m_run[i] - m_new) * scale_log2);  // 0 on the first tile
+        const float mc = m_new * scale_log2;
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          s[i][jj] = ex2(fmaf(s[i][jj], scale_log2, -mc));
+          sum += s[i][jj];
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        l_run[i] = fmaf(l_run[i], alpha, sum);
+        m_run[i] = m_new;
+#pragma unroll
+        for (int x = 0; x < OC; ++x) acc[i][x] *= alpha;
+      }
+      __syncwarp();  // every lane has read the old values
+      if (g == 0) {
+        *reinterpret_cast<float4*>(mw) = make_float4(m_run[0], m_run[1], m_run[2], m_run[3]);
+        *reinterpret_cast<float4*>(lw) = make_float4(l_run[0], l_run[1], l_run[2], l_run[3]);
+      }
+    }
+    mbar_wait(v_full, n & 1);  // V(n) landed
+    if (active) {
+      // O += P V in two halves of 32 keys: this lane's weights of keys
+      // g + 8 jj go to P[key][4 rg ...] as one 16-byte store per key, and
+      // each lane reads its four rows' weights as one 16-byte load per key.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int j4 = 0; j4 < 4; ++j4) {
+          const int jj = 4 * half + j4;
+          *reinterpret_cast<float4*>(ps + (g + 8 * j4) * F32_PSTRIDE + 4 * rg) =
+              make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+        }
+        __syncwarp();
+        const float* vh = vs + half * F32_HALF * D + 4 * g;
+#pragma unroll 8
+        for (int j = 0; j < F32_HALF; ++j) {
+          const float4 pf = lds4(ps + j * F32_PSTRIDE + 4 * rg);
+          const float p[4] = {pf.x, pf.y, pf.z, pf.w};
+          float vv[OC];
+#pragma unroll
+          for (int x = 0; x < OC; x += 4) {
+            const float4 t = lds4(vh + j * D + 8 * x);  // columns 4 g + 32 (x / 4) ...
+            vv[x] = t.x, vv[x + 1] = t.y, vv[x + 2] = t.z, vv[x + 3] = t.w;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int x = 0; x < OC; ++x) acc[i][x] = fmaf(p[i], vv[x], acc[i][x]);
+        }
+        __syncwarp();  // P is rewritten next
+      }
+    }
+    __syncthreads();  // every warp has read V(n)
+    if (n + 1 < tiles) load_rows<D>(vs, D, vb, v_st, (n + 1) * F32_KEYS, F32_KEYS, T, v_full);
+  }
+  if (!active) return;
+  const float4 l4 = lds4(lw);
+  const float inv[4] = {1.f / l4.x, 1.f / l4.y, 1.f / l4.z, 1.f / l4.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + warp * F32_WARP_ROWS + 4 * rg + i;
+    if (row >= T) continue;
+    float* orow = o + b * o_sb + static_cast<int64_t>(row) * o_st + h * o_sh + 4 * g;
+#pragma unroll
+    for (int x = 0; x < OC; x += 4) {
+      *reinterpret_cast<float4*>(orow + 8 * x) =
+          make_float4(acc[i][x] * inv[i], acc[i][x + 1] * inv[i], acc[i][x + 2] * inv[i],
+                      acc[i][x + 3] * inv[i]);
     }
   }
-  if (!live) return;
-  float* orow = o + b * o_sb + (int64_t)row * o_st + h * o_sh;
-  const float inv = 1.f / l_run;
-#pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
 }
 
 // ---- host side ------------------------------------------------------------
@@ -649,14 +860,92 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// The f32 body's launch for [B, T, H, D]: registers per thread (two
+// builds), warps per CTA and CTAs per SM. A wave that puts k CTAs of w
+// warps on an SM costs k * w (16 rows each), but no less than an SM that
+// is just saturated, F32_SAT_WARPS: fewer warps leave its schedulers idle.
+// The plan is the one whose waves cost least, ties going to 128 registers
+// (no spills), then to more resident warps, then to more warps per CTA.
+// At T = 1500 that is 96 registers and 9 warps for 24 heads (264 CTAs, two
+// on every SM: one wave), and 128 registers and 5 warps for 80 heads.
+constexpr int F32_BUILDS = 2;
+constexpr int F32_SAT_WARPS = 12;  // 3 per scheduler
+constexpr int F32_REGS[F32_BUILDS] = {96, 128};  // 5 or 4 warps per SM quarter
+
+struct F32Plan {
+  int build, warps, per_sm;  // build: an index into F32_REGS
+};
+
+template <int D>
+const void* f32_kernel(int build) {
+  return build == 0 ? reinterpret_cast<const void*>(flash_fwd_f32<D, F32_REGS[0]>)
+                    : reinterpret_cast<const void*>(flash_fwd_f32<D, F32_REGS[1]>);
+}
+
+template <int D>
+int plan_f32(int B, int T, int H, int device, F32Plan* plan) {
+  constexpr int MAX_DEVICES = 64;
+  static int sms[MAX_DEVICES] = {};  // 0 until the device is set up
+  // Resident CTAs per SM, by build and warps per CTA.
+  static int fit[MAX_DEVICES][F32_BUILDS][F32_MAX_WARPS + 1] = {};
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    cudaError_t err = cudaSuccess;
+    for (int r = 0; err == cudaSuccess && r < F32_BUILDS; ++r) {
+      // Above 48 KB of dynamic shared memory, and all of the SM's for it.
+      err = cudaFuncSetAttribute(f32_kernel<D>(r), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 F32Smem<D>::bytes(F32_MAX_WARPS));
+      if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(f32_kernel<D>(r),
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+      }
+      for (int w = F32_MIN_WARPS; err == cudaSuccess && w <= F32_MAX_WARPS; ++w) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &fit[device][r][w], f32_kernel<D>(r), 32 * w, F32Smem<D>::bytes(w));
+      }
+    }
+    int n = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    sms[device] = n;
+  }
+  *plan = F32Plan{0, 0, 0};
+  int64_t best = 0;
+  for (int r = 0; r < F32_BUILDS; ++r) {
+    for (int w = F32_MIN_WARPS; w <= F32_MAX_WARPS; ++w) {
+      const int n = fit[device][r][w];
+      if (n == 0) continue;
+      const int64_t units = static_cast<int64_t>((T + 16 * w - 1) / (16 * w)) * H * B;
+      const int64_t slots = static_cast<int64_t>(n) * sms[device];
+      const int64_t rest = units % slots, last = (rest + sms[device] - 1) / sms[device] * w;
+      const int64_t cost = units / slots * max(n * w, F32_SAT_WARPS) +
+                           (rest > 0 ? max(last, static_cast<int64_t>(F32_SAT_WARPS)) : 0);
+      const int resident = n * w, best_resident = plan->per_sm * plan->warps;
+      const bool better =
+          cost < best ||
+          (cost == best && (r > plan->build || (r == plan->build && resident >= best_resident)));
+      if (plan->warps == 0 || better) {
+        *plan = F32Plan{r, w, n};
+        best = cost;
+      }
+    }
+  }
+  return plan->warps == 0 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int T, int H,
-               const int64_t* s, float scale, cudaStream_t stream) {
-  dim3 grid((T + F32_ROWS - 1) / F32_ROWS, H, B);
-  flash_fwd_f32<D><<<grid, F32_ROWS, 0, stream>>>(
+               const int64_t* s, float scale, int device, cudaStream_t stream) {
+  F32Plan plan;
+  const int rc = plan_f32<D>(B, T, H, device, &plan);
+  if (rc != 0) return rc;
+  dim3 grid((T + F32_WARP_ROWS * plan.warps - 1) / (F32_WARP_ROWS * plan.warps), H, B);
+  auto kernel = plan.build == 0 ? flash_fwd_f32<D, F32_REGS[0]> : flash_fwd_f32<D, F32_REGS[1]>;
+  kernel<<<grid, 32 * plan.warps, F32Smem<D>::bytes(plan.warps), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), T, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
-      s[10], s[11], scale);
+      s[10], s[11], scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -678,11 +967,28 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   if (dtype == 1 && layouts == nullptr) return (int)cudaErrorInvalidValue;
   if (D == 64) {
     return dtype == 1 ? launch_bf16<64>(q, k, v, o, B, T, H, strides, layouts, scale, device, st)
-                      : launch_f32<64>(q, k, v, o, B, T, H, strides, scale, st);
+                      : launch_f32<64>(q, k, v, o, B, T, H, strides, scale, device, st);
   }
   if (D == 32) {
     return dtype == 1 ? launch_bf16<32>(q, k, v, o, B, T, H, strides, layouts, scale, device, st)
-                      : launch_f32<32>(q, k, v, o, B, T, H, strides, scale, st);
+                      : launch_f32<32>(q, k, v, o, B, T, H, strides, scale, device, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The f32 body's launch plan for [B, T, H, D] (D = 32 or 64): out[0] warps
+// per CTA, out[1] CTAs per SM, out[2] registers per thread. Returns 0, or a
+// cudaError_t.
+extern "C" int flash_attn_f32_plan(int B, int T, int H, int D, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  F32Plan plan;
+  const int rc = D == 64   ? plan_f32<64>(B, T, H, device, &plan)
+                 : D == 32 ? plan_f32<32>(B, T, H, device, &plan)
+                           : (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
+  out[0] = plan.warps;
+  out[1] = plan.per_sm;
+  out[2] = F32_REGS[plan.build];
+  return 0;
 }

@@ -3,11 +3,16 @@
 Counterpart of ``whisper_tpu/ops/attention.py``. There the TPU runs JAX's
 Pallas ``flash_attention`` on inputs padded to a multiple of 512 with a
 segment-id mask. Here a CUDA tensor runs the hand-written Hopper kernel
-``csrc/flash_attn_fwd.cu`` (bf16: TMA loads, ``wgmma``, a producer warpgroup
-and three consumer warpgroups on a persistent grid), which tiles T as it is
-and masks the ragged last K/V tile itself. A CPU tensor runs :func:`fused_self_attention_reference`,
-the plain PyTorch version of the same function. There is no fallback: a
-CUDA tensor the kernel does not take raises.
+``csrc/flash_attn_fwd.cu``, which tiles T as it is and masks the ragged
+last K/V tile itself. Its bf16 body: TMA loads, ``wgmma``, a producer
+warpgroup and three consumer warpgroups on a persistent grid. Its f32 body
+(the parity dtype; FMA on the CUDA cores, no TF32): register tiles of 4 rows
+x 8 keys of S and 4 rows x 8 columns of O per lane, one softmax update and
+one exp2 per score per 64-key tile, K and V tiles by bulk copies on
+mbarriers, and a launch shaped to the card's waves (:func:`f32_plan`). A
+CPU tensor runs :func:`fused_self_attention_reference`, the plain PyTorch
+version of the same function. There is no fallback: a CUDA tensor the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{KERNEL}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{KERNEL}: q, k, v on different devices")
-    # TMA (bf16) and 16-byte vector loads (f32): contiguous head_dim,
+    # TMA (bf16) and one bulk copy per row (f32): contiguous head_dim,
     # 16-byte aligned base and strides.
     align = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -141,6 +146,17 @@ def fused_self_attention(
     return out
 
 
+def f32_plan(b: int, t: int, h: int, dh: int, device: int = 0) -> Tuple[int, int, int]:
+    """The f32 body's launch on the card for [b, t, h, dh]: (warps per CTA,
+    CTAs resident per SM, registers per thread), as the kernel's wave model
+    picks them."""
+    out = (ctypes.c_int * 3)()
+    rc = _library().flash_attn_f32_plan(b, t, h, dh, device, out)
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL}: f32 launch plan failed with code {rc} (a cudaError_t)")
+    return out[0], out[1], out[2]
+
+
 def _library() -> ctypes.CDLL:
     from whisper_tpu_torch.ops.build import load_library
 
@@ -153,4 +169,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    plan = lib.flash_attn_f32_plan
+    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
     return lib
