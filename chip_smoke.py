@@ -27,7 +27,10 @@ Phases, in order; any failure exits non-zero before the last line:
    ``tiny`` draft encoder's shape [4, 1500, 6, 64] in bf16 (phase 8a's
    draft of its own frontend) beside its plain version, the library call
    and the bound; the f32 body likewise at both shapes the f32 paths give
-   it, [4, 1500, 6, 64] and large-v3's [4, 1500, 20, 64].
+   it, [4, 1500, 6, 64] and large-v3's [4, 1500, 20, 64]; and K1 at the
+   local heads of a tensor-parallel rank, [4, 1500, 10, 64] (large-v3 at a
+   model axis of 2), in bf16 and f32, beside its plain version, the library
+   call and the bound, with the f32 launch plan.
    K5's path is its entry point on the main path's batch: one launch. K2′
    (K2 on one rank of a data-parallel mesh) bitwise on rank 1's planes of
    a batch of 4 on 2 ranks, with global source rows. K2 and K2′ with new
@@ -49,14 +52,15 @@ Phases, in order; any failure exits non-zero before the last line:
    lengths and ``transcribe`` of a WAV file. Launch counts are set to 0
    just before and read just after: K1 must run once per encoder layer of
    every encode, K2, K3, K4 and K5 never. Prints audio-s/s, encoder ms and
-   decode ms/token.
+   decode ms/token, and ``utils/roofline.utilization`` of the timed batch
+   (mfu, hbm_utilization, sol_decode_s) at the card's peaks.
 4b. Beam main path at full width: the same with ``beam_size=5,
    quantization="int8", kv_cache_dtype="float8_e4m3fn"`` and
    ``fused_step`` left at "auto" (K2's "hybrid" on the card): K2 must run
    once per decoder layer of every decode step, K3, K4 and K5 never. Then
    ``fused_step="off"`` on the same weights: K4 twice per step (K and V),
    K2 never, and tokens equal to the hybrid run's (the two modes run the
-   same arithmetic on the same bytes).
+   same arithmetic on the same bytes). The roofline line as in phase 4.
 4c. K3's path at full width: ``utils/probe_fused.run`` at large-v3, batch
    4, beam 5, ctx 68, fp8 planes, in its modes "attend" (K3 32 × steps, K2
    never), "dma" and "hybrid" (K2 32 × steps, K3 never), ms per 32-layer
@@ -71,13 +75,35 @@ Phases, in order; any failure exits non-zero before the last line:
    never, and return the same 4 results as the other; each rank's rows
    must equal a run of the same 2 rows in this process, with the crop the
    ranks used. Agreement with phase 4b's batch-4 tokens is printed only.
+4e. The tensor-parallel path at full width: large-v3 bf16 with
+   ``mesh_shape=(1, 2)``, two processes of ``parallel/_dist_worker`` that
+   share this card over gloo (a proof of the arithmetic, not a scaling
+   number: NCCL refuses two ranks on one card), phase 4's weights and 4
+   utterances with a 32-token budget, greedy and then phase 4b's flagship
+   (beam 5, int8, fp8 KV, "auto", which is "off" on a model axis > 1).
+   Each rank holds about half of phase 4's parameter bytes (its peak
+   memory printed); launches per rank exactly K1 32 per encode (its 10
+   local heads), K4 twice per beam step, K2, K2′, K3 and K5 never;
+   collectives exactly 64 per encode and 98 per decoder forward (the
+   embedding's gather, o, cross o and fc2 of 32 layers, the logits) for
+   the detection, the prefill and every step, counted apart; both ranks
+   return the same results, and tokens equal this process's engine at the
+   same budget but for a flip where its top-2 gap is < 0.25 (as 8b
+   allows; a beam row's gap is the beam's own margin, and a token outside
+   its beam's top K + 1 fails; each flip printed with its gap). A
+   row-parallel product is summed from f32 partials and rounded once,
+   where this process rounds twice. An encode and a decode timed
+   apart: decode ms per token and host ms in collectives.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
    card's "hybrid", the card's "off" and the CPU's "off"; beam 3 with int8
    weights and the fp8 KV cache, card "hybrid" against CPU "off"; and beam
    3 on two ranks on the card (``mesh_shape=(2, 1)``) under "hybrid" (K2′)
-   and "off" against CPU "off". Then serving, ``audio_ctx=None``, on
+   and "off" against CPU "off"; and tensor parallelism on the card, on
+   ``mesh_shape=(1, 2)`` and ``(2, 2)`` (four processes on one card):
+   greedy, beam 3 "off" and beam 3 int8 + fp8 KV, every rank's tokens equal
+   to the CPU's single process. Then serving, ``audio_ctx=None``, on
    int16-exact utterances: ``ContinuousTranscriber`` (2 slots, 5
    utterances: slots reused), ``DisaggregatedTranscriber`` and
    ``AsyncTranscriber`` must each give tokens equal to ``engine.transcribe``
@@ -160,6 +186,14 @@ Phases, in order; any failure exits non-zero before the last line:
    openai-format ``.pt`` of random ``tiny`` weights, ``transcribe
    --checkpoint`` of the npz (text and lengths equal to the in-process
    engine's on the same file), and ``info``. Every run exits 0.
+10. The native host loader and the C ABI (``whisper_tpu_torch/native``):
+   the host library built with g++ and ``load_native()`` not None;
+   ``load_batch`` of 8 WAVs bitwise equal to the Python readers (both
+   timed on the host clock); ``transcribe_files`` at ``tiny`` with the
+   loader equal to it without; then the C-ABI library and its driver built
+   against this interpreter, and the C driver, as a subprocess that embeds
+   Python, transcribes a WAV with ``tiny`` random weights (seed 0) on
+   ``cuda``: its text equals this process's engine's.
 
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
@@ -185,6 +219,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 LARGE_V3_ENC_LAYERS = 32
 LARGE_V3_DEC_LAYERS = 32
 FP8 = "float8_e4m3fn"
+TP_LOCAL_SHAPE = (4, 1500, 10, 64)  # K1 on one rank of large-v3 at a model axis of 2
 
 
 def log(msg: str) -> None:
@@ -437,6 +472,10 @@ def phase_kernels(torch, attention) -> dict:
     record["per_t"] = per_t
     record["draft_shape"] = k1_timed(torch, attention, gen, TINY_ENC_SHAPE, "bfloat16")
     record["f32"] = k1_f32(torch, attention, gen)
+    log(f"  K1 at a tensor-parallel rank's local heads {list(TP_LOCAL_SHAPE)} (large-v3, model axis 2):")
+    record["tp_local_heads"] = {
+        dt: k1_timed(torch, attention, gen, TP_LOCAL_SHAPE, dt) for dt in ("bfloat16", "float32")
+    }
     return record
 
 
@@ -1330,6 +1369,27 @@ def main_path_batch():
     return utts, batch, float(sum(LENGTHS_S))
 
 
+def roofline_line(torch, engine, results, wall: float, host: np.ndarray) -> dict:
+    """``utils/roofline.utilization`` of one timed ``transcribe_batch``
+    (the card's peaks; the decode's mean generated tokens per row; the
+    port's one preallocated cache, so no segment growth), logged."""
+    from whisper_tpu_torch.utils import roofline
+
+    cfg = engine.config
+    p_len = len(engine._prompt)
+    new = float(np.mean([r.length - p_len for r in results]))
+    u = roofline.utilization(
+        engine.dims, len(results), cfg.beam_size, p_len, new, p_len + engine._max_new, wall,
+        cfg.quantization, cfg.kv_cache_dtype, torch.cuda.get_device_name(0), ctx_bucket=None,
+        audio_ctx=engine._resolve_audio_ctx(host),
+    )
+    log(f"  roofline (utils/roofline.py at {u.get('chip')}'s peaks): mfu {u.get('mfu')}, hbm_utilization "
+        f"{u.get('hbm_utilization')}, sol_decode_s {u.get('sol_decode_s')} (analytic "
+        f"{u['analytic_tflops']} TFLOP, {u['decode_gb_streamed']} GB streamed by the decode, "
+        f"{new:.1f} tokens per row)")
+    return u
+
+
 def reset_counts(*modules) -> None:
     for m in modules:
         m.launches = 0
@@ -1392,6 +1452,7 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
         f"decode {(t2 - t1) * 1e3:.1f} ms over {steps} steps "
         f"= {(t2 - t1) * 1e3 / max(steps, 1):.2f} ms/token"
     )
+    roofline_line(torch, engine, results, wall, host)
     for r in results:
         log(f"    lang {r.language} length {r.length} tokens {r.tokens[:8].tolist()}...")
     log(f"    file: lang {single.language} length {single.length}")
@@ -1457,6 +1518,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) * 1e3:.1f} ms over {stage_steps} "
         f"steps = {(t2 - t1) * 1e3 / max(stage_steps, 1):.2f} ms/step"
     )
+    roofline_line(torch, engine, results, wall, host)
     for r in results:
         log(f"    lang {r.language} length {r.length} avg_logprob {r.avg_logprob:.4f} tokens {r.tokens[:8].tolist()}...")
     log(f"    file: lang {single.language} length {single.length}")
@@ -1558,6 +1620,247 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
     return k2s
 
 
+TP_BUDGET = 32  # phase 4e's tokens per row
+TP_PER_FORWARD = 2 + 3 * LARGE_V3_DEC_LAYERS  # 98: embedding, o, cross o, fc2 × 32, logits
+TP_PER_ENCODE = 2 * LARGE_V3_ENC_LAYERS  # 64: o and fc2 × 32
+
+
+def _tp_expect(label: str, rep: dict, rec: dict, beam_run: bool, encodes: int, decodes: int) -> None:
+    """Phase 4e's exact counts for one rank's record ``rec`` (a run, or one
+    of its timed stages): K1 32 per encode, K4 2 per beam step, no other
+    kernel; collectives 64 per encode and 98 per decoder forward, by
+    stage."""
+    n, steps, col = rec["launches"], rec["steps"], rec["collectives"]
+    want_k = {"flash_attn_fwd": LARGE_V3_ENC_LAYERS * encodes,
+              "permute_rows": 2 * steps if beam_run else 0,
+              "permute_append": 0, "permute_append_sharded": 0, "gather_attend": 0, "log_mel_fused": 0}
+    if n != want_k:
+        fail(f"4e {label}, rank {rep['rank']}: launches {n}, expected {want_k}")
+    want_c = {}
+    if encodes:
+        want_c["encode"] = TP_PER_ENCODE * encodes
+    if decodes:
+        want_c.update(detect=TP_PER_FORWARD * decodes, prefill=TP_PER_FORWARD * decodes,
+                      step=TP_PER_FORWARD * steps)
+    if col["by_stage"] != want_c or col["calls"] != sum(want_c.values()):
+        fail(f"4e {label}, rank {rep['rank']}: collectives {col}, expected {want_c}")
+
+
+@contextlib.contextmanager
+def _beam_trace(beam):
+    """Record every selection round of ``beam_decode`` while the ``with``
+    lasts: the per-beam top-(K+1) tokens (``topk_wide``) and the pool's
+    scores, the kept candidates and their scores (``select_candidates``),
+    on the host, one dict per round (the first expansion first)."""
+    rounds = []
+    topk, select = beam.topk_wide, beam.select_candidates
+
+    def traced_topk(x, k):
+        vals, idx = topk(x, k)
+        rounds.append({"tok": idx.cpu()})
+        return vals, idx
+
+    def traced_select(scores, is_eot, k):
+        sel = select(scores, is_eot, k)
+        rounds[-1].update(scores=scores.float().cpu(), act=sel.act_idx.cpu(),
+                          act_scores=sel.act_scores.float().cpu())
+        return sel
+
+    beam.topk_wide, beam.select_candidates = traced_topk, traced_select
+    try:
+        yield rounds
+    finally:
+        beam.topk_wide, beam.select_candidates = topk, select
+
+
+@contextlib.contextmanager
+def _row_parallel_f32(torch, params):
+    """While the ``with`` lasts, this process forms its row-parallel
+    products (o, cross o, fc2 of ``params``, its engine's tree) from f32
+    operands and rounds them once, as a tensor-parallel rank does: the
+    ranks' arithmetic but for the order of the f32 sums. Yields the list
+    whose length counts those products."""
+    from whisper_tpu_torch.models import layers
+
+    rows = set()
+    for part in ("encoder", "decoder"):
+        for b in params[part]["blocks"]:
+            rows.update(id(b[n]["o"]) for n in ("attn", "cross") if n in b)
+            rows.add(id(b["mlp"]["fc2"]))
+    plain, hits = layers.linear, []
+
+    def linear(p, x, tp=None):
+        if id(p) not in rows:
+            return plain(p, x, tp)
+        hits.append(1)
+        y = torch.matmul(x.float(), (p["w_q"] if "w_q" in p else p["w"]).float())
+        if "w_q" in p:
+            y = y * p["w_s"].float()
+        return (y + p["b"].float()).to(x.dtype) if "b" in p else y.to(x.dtype)
+
+    layers.linear = linear
+    try:
+        yield hits
+    finally:
+        layers.linear = plain
+
+
+def _beam_flip_gap(rounds, i: int, k: int, generated: list, what: str) -> tuple:
+    """The single process's margin against another run's hypothesis
+    ``generated`` (utterance ``i``'s tokens after the prompt), from its
+    beam trace: walk the rounds while the hypothesis's prefix is among the
+    kept beams; where it is dropped, the gap is the K-th kept candidate's
+    score less the hypothesis's candidate's (sum-logprob nats, the units
+    of a greedy top-2 gap); where it is kept to the end, the gap between
+    the two final beams' scores. Fails (``what`` names the run) where the
+    hypothesis's token is not in its source beam's top K + 1: that is no
+    near tie. Returns (gap, round)."""
+    beams = None  # the kept prefixes after each round
+    for r, rd in enumerate(rounds):
+        if r == 0:  # the first expansion: one pool of K + 1 per utterance
+            toks = rd["tok"][i].tolist()
+            srcs = [0] * len(toks)
+            prev = [[]]
+        else:
+            toks = rd["tok"][i * k : (i + 1) * k].reshape(-1).tolist()
+            srcs = [c // (k + 1) for c in range(len(toks))]
+            prev = beams
+        scores, act = rd["scores"][i].tolist(), rd["act"][i].tolist()
+        kept = [prev[srcs[c]] + [toks[c]] for c in act]
+        want = generated[: r + 1]
+        if want not in kept:
+            src = next((j for j, pre in enumerate(prev) if pre == generated[:r]), None)
+            kth = rd["act_scores"][i][-1].item()
+            pool = [c for c in range(len(toks)) if srcs[c] == src]
+            hit = [c for c in pool if toks[c] == generated[r]]
+            if not hit:
+                fail(f"{what}: row {i}'s token {generated[r]} at round {r} is not among the single "
+                     f"process's top {k + 1} of its beam: not a near tie")
+            return kth - scores[hit[0]], r
+        beams = kept
+        if r + 1 == len(generated):
+            break
+    final = rounds[min(len(generated), len(rounds)) - 1]["act_scores"][i].tolist()
+    mine = beams.index(generated[: len(beams[0])])
+    return max(final) - final[mine], len(rounds) - 1
+
+
+def _language_gap(torch, engine, host_row: np.ndarray, audio_ctx) -> float:
+    """The top-2 gap of the language detection's logits for one utterance
+    (alone, at the batch's crop ``audio_ctx``): how near a tie its
+    language pick was."""
+    from whisper_tpu_torch.decode.language import detect_language_tokens
+
+    batch, _, _ = engine._prepare_batch(host_row[None])
+    enc = engine._encode(batch[:1], audio_ctx)
+    _, probs = detect_language_tokens(
+        engine.assets.params, enc, engine.dims, sot=engine.vocab.specials.sot,
+        compute_dtype=engine._compute_dtype, return_probs=True,
+    )
+    top = torch.topk(torch.log(probs[0].float()), 2).values  # log-softmax: logits less a constant
+    return float(top[0] - top[1])
+
+
+def phase_tensor_parallel(torch, main_engine, beam_engine) -> dict:
+    """The tensor-parallel path (docstring, phase 4e). Returns K1's and
+    K4's launches per rank and the run's numbers."""
+    from whisper_tpu_torch.decode import beam as beam_search
+    from whisper_tpu_torch.models.quantize import param_bytes
+    from whisper_tpu_torch.parallel._dist_worker import launch
+
+    utts, batch, audio_s = main_path_batch()
+    out = {}
+    for label, engine in (("greedy", main_engine), ("flagship", beam_engine)):
+        cfg = dataclasses.replace(engine.config, max_new_tokens=TP_BUDGET)
+        beam_run = cfg.beam_size > 1
+        flags = ["--beam", str(cfg.beam_size), "--fused-step", "auto"]
+        if cfg.quantization:
+            flags += ["--quantization", cfg.quantization, "--kv-cache-dtype", cfg.kv_cache_dtype]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(os.path.join(tmp, "batch.npy"), batch)
+            reports = launch(2, [
+                "--npy", os.path.join(tmp, "batch.npy"), "--model", cfg.model, "--seed", "0",
+                "--device", "cuda", "--dtype", cfg.dtype, "--mesh", "1,2",
+                "--max-new", str(TP_BUDGET), "--stages", *flags,
+            ], tmp, timeout=600)
+        launch_s = time.perf_counter() - t0
+        whole = param_bytes(engine.assets.params)
+        for rep in reports:
+            run = rep["runs"]["auto"]
+            share = rep["param_bytes"] / whole
+            log(f"  {label}, rank {rep['rank']} of mesh {tuple(rep['mesh'])} on {rep['device']}: "
+                f"{rep['param_bytes'] / 1e9:.3f} GB of weights ({share:.4f} of phase 4's "
+                f"{whole / 1e9:.3f} GB), max_memory_allocated {rep['max_memory_allocated'] / 1e9:.3f} GB; "
+                f"run {run['seconds'] * 1e3:.1f} ms → {audio_s / run['seconds']:.2f} audio-s/s "
+                f"(two ranks on one card: not a scaling number); launches {run['launches']}; "
+                f"collectives {run['collectives']['by_stage']}")
+            if not 0.48 <= share <= 0.52:
+                fail(f"4e {label}, rank {rep['rank']}: holds {share:.4f} of the weights, expected about half")
+            _tp_expect(label, rep, run, beam_run, encodes=1, decodes=1)
+            _tp_expect(f"{label} encode", rep, run["encode"], beam_run, encodes=1, decodes=0)
+            _tp_expect(f"{label} decode", rep, run["decode"], beam_run, encodes=0, decodes=1)
+            dec = run["decode"]
+            steps = max(dec["steps"], 1)
+            log(f"    encode {run['encode']['ms']:.1f} ms ({run['encode']['collectives']['host_ms']:.1f} host ms "
+                f"in its 64 collectives); decode {dec['ms']:.1f} ms over {dec['steps']} steps = "
+                f"{dec['ms'] / steps:.2f} ms/token, {dec['collectives']['host_ms']:.1f} host ms in its "
+                f"{dec['collectives']['calls']} collectives ({dec['collectives']['host_ms'] / steps:.2f} per step)")
+        results = reports[0]["runs"]["auto"]["results"]
+        if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
+            fail(f"4e {label}: the ranks returned different result lists")
+        # This process's engine on the same weights at the same budget (its
+        # beam rounds traced, for the margin of a flip).
+        single = type(engine)(engine.assets, cfg, device=engine.device)
+        with _beam_trace(beam_search) as rounds:
+            ref = single.transcribe_batch(batch)
+        flips = []
+        p_len = len(single._prompt)
+        for i, (g, r) in enumerate(zip(results, ref)):
+            want = r.tokens[: r.length].tolist()
+            if g["tokens"] == want:
+                continue
+            p = next((j for j, (a, b) in enumerate(zip(g["tokens"], want)) if a != b),
+                     min(len(g["tokens"]), len(want)))
+            if p == single._sot_index + 1:  # the detected language
+                gap = _language_gap(torch, single, batch[i], reports[0]["audio_ctx"])
+                how = "language detection's top-2 gap"
+            elif beam_run:  # the beam's own margin: the K-th kept candidate against the row's
+                gap, rnd = _beam_flip_gap(rounds, i, cfg.beam_size, g["tokens"][p_len:], f"4e {label}")
+                how = f"beam margin at round {rnd}"
+            else:
+                gap, how = _top2_gap(torch, single, batch[i], r.tokens, p), "top-2 gap"
+            log(f"    {label} row {i}: leaves the single process's tokens at position {p} "
+                f"({want[p] if p < len(want) else None} → "
+                f"{g['tokens'][p] if p < len(g['tokens']) else None}), its {how} {gap:.4f}")
+            if gap >= BF16_NEAR_TIE:
+                fail(f"4e {label}: row {i} differs at a pick {gap:.4f} from a tie (rule: < {BF16_NEAR_TIE})")
+            flips.append({"row": i, "position": p, "gap": gap})
+        with _row_parallel_f32(torch, single.assets.params) as hits:
+            same = single.transcribe_batch(batch)
+        alike = [i for i, (g, r) in enumerate(zip(results, same)) if g["tokens"] == r.tokens[: r.length].tolist()]
+        log(f"  information: {label}: rows {alike} of {len(results)} equal this process run with the ranks' "
+            f"arithmetic ({len(hits)} row-parallel products from f32 operands, rounded once)")
+        log(f"  {label}: both ranks return the same {len(results)} results; "
+            f"{len(results) - len(flips)} of {len(results)} rows equal this process's engine at "
+            f"{TP_BUDGET} tokens, {len(flips)} near-tie flips; launch {launch_s:.1f} s")
+        out[label] = {
+            "k1_per_rank": [rep["runs"]["auto"]["launches"]["flash_attn_fwd"] for rep in reports],
+            "k4_per_rank": [rep["runs"]["auto"]["launches"]["permute_rows"] for rep in reports],
+            "steps": reports[0]["runs"]["auto"]["steps"],
+            "decode_ms_per_token": reports[0]["runs"]["auto"]["decode"]["ms"]
+            / max(reports[0]["runs"]["auto"]["decode"]["steps"], 1),
+            "decode_collective_host_ms": reports[0]["runs"]["auto"]["decode"]["collectives"]["host_ms"],
+            "encode_ms": reports[0]["runs"]["auto"]["encode"]["ms"],
+            "encode_collective_host_ms": reports[0]["runs"]["auto"]["encode"]["collectives"]["host_ms"],
+            "param_bytes_per_rank": [rep["param_bytes"] for rep in reports],
+            "max_memory_allocated": [rep["max_memory_allocated"] for rep in reports],
+            "flips": flips,
+            "rows_equal_to_the_ranks_arithmetic": alike,
+        }
+    return out
+
+
 SERVING_TIMEOUT_S = 600  # per future: a hang fails the run, it does not stall it
 
 
@@ -1623,6 +1926,7 @@ def phase_serving_card_vs_cpu(torch, params, cfg, Monolith) -> None:
 
 
 def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
+    from whisper_tpu_torch.decode import beam as beam_search
     from whisper_tpu_torch.models.params import init_params
 
     # float32 on both sides: TF32 off for matmuls and for cuDNN convolutions.
@@ -1651,10 +1955,9 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
         "cpu off": beam_run("cpu", "off"),
     }
     q8 = dict(quantization="int8", kv_cache_dtype=FP8)
-    runs_q = {
-        "card hybrid int8+fp8": beam_run("cuda", "hybrid", **q8),
-        "cpu off int8+fp8": beam_run("cpu", "off", **q8),
-    }
+    with _beam_trace(beam_search) as cpu_q_rounds:  # phase 5's tp leg reads its margins
+        cpu_q = beam_run("cpu", "off", **q8)
+    runs_q = {"card hybrid int8+fp8": beam_run("cuda", "hybrid", **q8), "cpu off int8+fp8": cpu_q}
     for group in (runs, runs_q):
         (first, ref), *rest = group.items()
         for r in ref:
@@ -1692,10 +1995,67 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
                      f"K4 {n['permute_rows']}, K2 {n['permute_append']} over {steps} steps")
         log(f"  beam 3, DP(2) on the card, {mode}: both ranks equal to cpu off "
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
+    phase_tp_card_vs_cpu(torch, params, cfg, x, {"greedy": cpu, "beam 3 off": runs["cpu off"],
+                                                 "beam 3 int8+fp8": cpu_q}, cpu_q_rounds)
 
     phase_options_card_vs_cpu(params, cfg, x, Monolith)
     phase_serving_card_vs_cpu(torch, params, cfg, Monolith)
     phase_speculative_card_vs_cpu(params, cfg, x, Monolith, card)
+
+
+def phase_tp_card_vs_cpu(torch, params, cfg, x, cpu_runs, fp8_rounds) -> None:
+    """Phase 5's tensor parallelism: ``tiny`` f32 (TF32 off) on the meshes
+    (1, 2) and (2, 2), every rank on this card, greedy, beam 3 "off" and
+    beam 3 int8 + fp8 KV: every rank's tokens equal the CPU's single
+    process (``cpu_runs``). Under the fp8 cache one exception: a row may
+    leave the CPU's tokens where the CPU's own beam margin there
+    (``fp8_rounds``, its traced rounds; :func:`_beam_flip_gap`) is below
+    0.25. An fp8 store rounds to 3 mantissa bits, so a last-bit f32
+    difference (another summation order: the model group's partial sums,
+    a rank's batch of 1) moves a stored K or V value by a whole step where
+    it lies at a rounding edge; every flip is printed with its margin."""
+    from whisper_tpu_torch.parallel._dist_worker import launch
+
+    configs = {
+        "greedy": [],
+        "beam 3 off": ["--beam", "3", "--fused-step", "off"],
+        "beam 3 int8+fp8": ["--beam", "3", "--quantization", "int8", "--kv-cache-dtype", FP8],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(params, os.path.join(tmp, "params.pt"))
+        np.save(os.path.join(tmp, "x.npy"), x)
+        for mesh in ((1, 2), (2, 2)):
+            n = mesh[0] * mesh[1]
+            for name, flags in configs.items():
+                t0 = time.perf_counter()
+                reports = launch(n, [
+                    "--npy", os.path.join(tmp, "x.npy"), "--params", os.path.join(tmp, "params.pt"),
+                    "--model", cfg.model, "--device", "cuda", "--dtype", cfg.dtype,
+                    "--max-new", str(cfg.max_new_tokens), "--mesh", f"{mesh[0]},{mesh[1]}", *flags,
+                ], tmp, timeout=300)
+                flips = []
+                for rep in reports:
+                    run = rep["runs"]["auto" if name != "beam 3 off" else "off"]
+                    for i, (g, b) in enumerate(zip(run["results"], cpu_runs[name])):
+                        if g["tokens"] == b.tokens[: b.length].tolist():
+                            continue
+                        if name == "beam 3 int8+fp8":
+                            p_len = len(b.tokens) - cfg.max_new_tokens
+                            gap, rnd = _beam_flip_gap(fp8_rounds, i, 3, g["tokens"][p_len:],
+                                                      f"tiny f32 {name}, mesh {mesh}, rank {rep['rank']}")
+                            if gap < BF16_NEAR_TIE:
+                                flips.append(f"row {i} at round {rnd}, the CPU's margin {gap:.4f}")
+                                continue
+                        fail(f"tiny f32 {name}, mesh {mesh} on the card, rank {rep['rank']}: tokens "
+                             f"{g['tokens']} differ from the CPU's {b.tokens[: b.length].tolist()}")
+                    if run["launches"]["permute_append"] or run["launches"]["permute_append_sharded"]:
+                        fail(f"tiny f32 {name}, mesh {mesh}: K2 or K2′ ran on a model axis of 2")
+                run0 = reports[0]["runs"]["auto" if name != "beam 3 off" else "off"]
+                same = "every rank equal to the CPU's single process" + (
+                    f" but for near-tie flips under fp8 storage: {sorted(set(flips))}" if flips else "")
+                log(f"  {name}, mesh {mesh} ({n} ranks on the card): {same} (K1 {run0['launches']['flash_attn_fwd']}, K4 "
+                    f"{run0['launches']['permute_rows']}, {run0['collectives']['calls']} collectives on "
+                    f"rank 0; {time.perf_counter() - t0:.1f} s)")
 
 
 def phase_speculative_card_vs_cpu(params, cfg, x, Monolith, card_greedy) -> None:
@@ -2397,6 +2757,88 @@ def phase_cli(torch) -> dict:
     return record
 
 
+def phase_native(torch) -> dict:
+    """Phase 10 (docstring): the native host loader and the C ABI."""
+    import site
+
+    import whisper_tpu_torch.native as native
+    from whisper_tpu_torch.audio.wav import read_wav, write_wav
+    from whisper_tpu_torch.config import EngineConfig
+    from whisper_tpu_torch.engine import EngineType, create_engine
+    from whisper_tpu_torch.native.build import build_engine, build_host
+
+    t0 = time.perf_counter()
+    build_host(force=True)
+    native.load_native.cache_clear()
+    host = native.load_native()
+    if host is None:
+        fail("the native host library was built but load_native() returned None")
+    log(f"  host library built in {time.perf_counter() - t0:.2f} s: {host.path}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, seconds in enumerate((4.0, 11.0, 19.5, 30.0, 2.0, 7.5, 25.0, 14.0)):
+            p = os.path.join(tmp, f"u{i}.wav")
+            write_wav(p, synthetic_utterance(seconds, 30 + i))
+            paths.append(p)
+        t0 = time.perf_counter()
+        rows = host.load_batch(paths, max_len=480_000)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = np.zeros_like(rows)
+        for i, p in enumerate(paths):
+            samples = read_wav(p)
+            ref[i, : len(samples)] = samples[:480_000]
+        python_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(rows, ref):
+            fail("the native load_batch differs from the Python readers")
+        log(f"  load_batch of 8 WAVs ({rows.shape}): bitwise equal to the Python readers; native "
+            f"{native_ms:.2f} ms, Python {python_ms:.2f} ms (host clock)")
+        out.update(load_batch_ms=native_ms, python_read_ms=python_ms)
+
+        cfg = EngineConfig(model="tiny", max_new_tokens=24)
+        engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")
+        calls = []
+        real = host.load_batch
+        host.load_batch = lambda *a, **k: calls.append(1) or real(*a, **k)
+        with_loader = engine.transcribe_files(paths)
+        host.load_batch = real
+        saved = native.load_native
+        native.load_native = lambda: None
+        try:
+            without = engine.transcribe_files(paths)
+        finally:
+            native.load_native = saved
+        if not calls:
+            fail("transcribe_files did not read through the native loader")
+        for a, b in zip(with_loader, without):
+            if not np.array_equal(a.tokens, b.tokens) or a.text != b.text:
+                fail("transcribe_files with the native loader differs from it without")
+        log(f"  transcribe_files (tiny, 8 files) with the loader equals it without")
+
+        t0 = time.perf_counter()
+        built = build_engine(force=True)
+        log(f"  C-ABI library and driver built in {time.perf_counter() - t0:.2f} s")
+        config = json.dumps({
+            "model": "tiny", "max_new_tokens": 24, "seed": 0, "device": "cuda",
+            "pythonpath": ":".join([os.path.dirname(os.path.abspath(__file__)), *site.getsitepackages()]),
+        })
+        with _torch_defaults(torch):  # the C driver's interpreter runs at torch's defaults
+            want = engine.transcribe(paths[1]).text
+        t0 = time.perf_counter()
+        proc = subprocess.run([built["driver"], config, paths[1]], capture_output=True, text=True,
+                              timeout=300)
+        driver_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the C driver exited {proc.returncode}: {proc.stderr[-2000:]}")
+        if proc.stdout != want + "\n":
+            fail(f"the C driver's text {proc.stdout!r} differs from the engine's {want!r}")
+        log(f"  the C driver (a process that embeds Python) transcribed on cuda in {driver_s:.1f} s: "
+            f"its text equals this process's engine's ({len(want)} characters)")
+        out["driver_s"] = driver_s
+    return out
+
+
 @contextlib.contextmanager
 def _torch_defaults(torch):
     """TF32 flags at torch's defaults while the ``with`` lasts (phase 5
@@ -2509,6 +2951,12 @@ def main() -> None:
     per_rank = phase_data_parallel(torch, beam_engine, beam_results)
     k2s["launches"], k2s["launches_per_rank"] = sum(per_rank), per_rank
 
+    log("[4e] tensor-parallel path: large-v3 bf16, mesh_shape=(1, 2), two ranks on one card over gloo")
+    tp = phase_tensor_parallel(torch, main_engine, beam_engine)
+    k1["tp_launches_per_rank"] = {label: rec["k1_per_rank"] for label, rec in tp.items()}
+    k4["tp_launches_per_rank"] = {label: rec["k4_per_rank"] for label, rec in tp.items()}
+    k1["tp_local_heads"]["launches_per_rank"] = k1["tp_launches_per_rank"]
+
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
 
@@ -2550,6 +2998,11 @@ def main() -> None:
     log("[9] the CLI: python -m whisper_tpu_torch.cli on the card")
     cli = phase_cli(torch)
     log(f"CLI record: {json.dumps(cli)}; phase 9 took {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    log("[10] the native host loader and the C ABI")
+    native_rec = phase_native(torch)
+    log(f"native record: {json.dumps(native_rec)}; tensor-parallel record: {json.dumps(tp)}; "
+        f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
     names = ("K1", "K2", "K2′", "K3", "K4", "K5")
     for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5)):

@@ -1,9 +1,9 @@
 """Which EngineConfig options the port takes, and the HTTP server's report
 of the fallback ladder.
 
-* a model axis > 1 (tensor parallelism) is still outside the port and
-  raises ``NotImplementedError``, also beside ``draft_model`` or
-  ``initial_prompt`` text, which are ported; ``temperature``,
+* a model axis > 1 (tensor parallelism) is ported, also beside
+  ``draft_model`` or ``initial_prompt`` text: one process is refused only
+  for the size of its world (such a mesh needs d · m); ``temperature``,
   ``fallback_temperatures`` and ``word_timestamps`` are ported and
   construct.
 * A POST to a ``TranscribeServer`` ("sync" and "async") over an engine with
@@ -46,7 +46,7 @@ torch.set_num_threads(2)
     ],
 )
 def test_options_outside_the_port_still_raise(override):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=r"needs \d+ processes, have 1"):
         create_engine(EngineType.MONOLITH, EngineConfig(model="dev", **override), device="cpu")
 
 

@@ -17,10 +17,11 @@ codes:
 * ``eval`` — WER between two line-aligned transcript files.
 
 One flag more than JAX's: ``--device`` (default ``cuda``; ``cpu`` runs on
-the CPU). ``--mesh d,1`` with d > 1 runs one rank of a data-parallel world
-and needs a process group (``torchrun --nproc-per-node d``); a model axis
-> 1 (tensor parallelism) is refused, as the engine refuses it. Usage
-errors exit 2 with a message. Without ``--checkpoint`` the weights are
+the CPU). ``--mesh d,m`` with d · m > 1 runs one rank of a world of d · m
+processes and needs a process group of that size (``torchrun
+--nproc-per-node`` d · m), as JAX's ``--mesh`` does: a data axis splits
+the batch, a model axis > 1 is tensor parallelism. Usage errors exit 2
+with a message. Without ``--checkpoint`` the weights are
 random from a seed.
 """
 
@@ -45,27 +46,24 @@ def _usage_error(msg: str):
 
 
 def _mesh_shape(spec):
-    """``--mesh DATA,MODEL`` → a shape the port runs: a model axis of 1, and
-    a data axis > 1 only as one rank of a process group of that size."""
+    """``--mesh DATA,MODEL`` → a shape the port runs: more than one rank
+    only as one rank of a process group of DATA · MODEL processes."""
     if not spec:
         return (1, 1)
     try:
         d, m = (int(x) for x in spec.split(","))
     except ValueError:
         _usage_error(f"--mesh wants 'data,model' (got {spec!r})")
-    if m > 1:
-        _usage_error(
-            f"--mesh {spec}: tensor parallelism (a model axis > 1) is not "
-            "ported to whisper_tpu_torch; use a model axis of 1"
-        )
-    if d > 1:
+    if d < 1 or m < 1:
+        _usage_error(f"--mesh wants positive sizes (got {spec!r})")
+    if d * m > 1:
         from whisper_tpu_torch.parallel.multihost import initialize, world_size
 
         initialize()  # a launcher's process group (torchrun), if any
-        if world_size() != d:
+        if world_size() != d * m:
             _usage_error(
-                f"--mesh {spec} runs one rank of {d} processes, here "
-                f"{world_size()}: launch it with torchrun --nproc-per-node {d}"
+                f"--mesh {spec} runs one rank of {d * m} processes, here "
+                f"{world_size()}: launch it with torchrun --nproc-per-node {d * m}"
             )
     return (d, m)
 
@@ -414,8 +412,8 @@ def _add_engine_args(p) -> None:
                    "(one teacher-forced forward per batch)")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                   help="data-parallel mesh, e.g. 2,1: this process is one rank "
-                   "(launch with torchrun); a model axis > 1 is not ported")
+                   help="mesh of DATA x MODEL ranks, e.g. 2,1 (data parallel) or 1,2 "
+                   "(tensor parallel): this process is one rank (launch with torchrun)")
     p.add_argument("--kv-dtype", choices=["float8_e4m3fn", "bfloat16"], default=None,
                    help="KV cache / cross-KV storage dtype (default: compute dtype)")
     p.add_argument("--quantize", choices=["int8"], default=None,

@@ -18,6 +18,11 @@ Counterpart of ``whisper_tpu/decode/align.py`` (openai-whisper
 
 Alignment heads: openai ships a per-checkpoint head mask; without one, all
 heads of the upper half of the decoder stack.
+
+Under tensor parallelism a rank holds ``n_text_head / m`` heads: it takes
+the mask's columns for its own heads, sums its part of the selected heads'
+z-normed weights, and the sum is all-reduced over the model group before
+the division by the global count of selected heads.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from whisper_tpu_torch.config import ModelDims
 from whisper_tpu_torch.models import layers
 from whisper_tpu_torch.models.decoder import KVCache
 from whisper_tpu_torch.models.params import Params
+from whisper_tpu_torch.parallel import collectives
+from whisper_tpu_torch.parallel.collectives import all_reduce_model, local_heads
 
 # One encoder position covers two 10 ms mel hops (conv stem stride 2).
 SECONDS_PER_POSITION = 0.02
@@ -61,13 +68,15 @@ def heads_to_mask(heads: Sequence[Tuple[int, int]], dims: ModelDims) -> np.ndarr
     return mask
 
 
+@collectives.stage("align")
 def alignment_matrix(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int — the FULL decoded rows (prompt incl.)
     cross_kv: KVCache,  # head-major [L, B, H, Dh, Ta], any storage dtype
     dims: ModelDims,
-    head_mask: np.ndarray,  # [L, H] bool
+    head_mask: np.ndarray,  # [L, H] bool, over the model's global heads
     compute_dtype: torch.dtype = torch.float32,
+    tp=None,  # this rank's mesh: cross_kv and the weights hold its heads
 ) -> torch.Tensor:
     """Teacher-forced forward → head-averaged, z-normed cross-attention
     alignment matrix [B, T, Ta] float32 (openai ``find_alignment``).
@@ -80,24 +89,27 @@ def alignment_matrix(
     to the average (JAX adds their zero-weighted sum) and skip the
     z-norm."""
     head_mask = np.asarray(head_mask, bool)
+    n_sel = max(float(head_mask.sum()), 1.0)
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = local_heads(dims.n_text_head, tp)
+    if tp is not None:  # this rank's heads: global columns [i · n_head, (i + 1) · n_head)
+        head_mask = head_mask[:, tp.model_index * n_head : (tp.model_index + 1) * n_head]
     b, t = tokens.shape
-    dh = dims.n_text_state // n_head
+    dh = dims.n_text_state // dims.n_text_head
     device = tokens.device
     tokens = tokens.to(torch.long)
 
-    h = (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][:t]).to(compute_dtype)
+    h = (layers.embed(dec["tok_emb"], tokens, tp) + dec["pos_emb"][:t]).to(compute_dtype)
     pos = torch.arange(t, device=device)
     causal = torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF).to(compute_dtype)
     ta = cross_kv["k"].shape[-1]
     acc = torch.zeros((b, t, ta), dtype=torch.float32, device=device)
-    n_sel = max(float(head_mask.sum()), 1.0)
 
     for layer, bp in enumerate(dec["blocks"]):
         hn = layers.layer_norm(bp["ln1"], h)
         q, k, v = (layers.split_heads(layers.linear(bp["attn"][n], hn), n_head) for n in "qkv")
-        h = h + layers.linear(bp["attn"]["o"], layers.merge_heads(layers.qkv_attention(q, k, v, causal)))
+        attn = layers.qkv_attention(q, k, v, causal)
+        h = h + layers.linear(bp["attn"]["o"], layers.merge_heads(attn), tp=tp)
 
         hn = layers.layer_norm(bp["ln2"], h)
         qx = layers.split_heads(layers.linear(bp["cross"]["q"], hn), n_head)
@@ -118,9 +130,10 @@ def alignment_matrix(
             acc += torch.einsum("bhqk,h->bqk", (w - mean) / (std + 1e-9), sel)
         out = torch.matmul(w.to(vT.dtype), vT.transpose(-1, -2))  # [B, H, T, Dh]
         del w
-        h = h + layers.linear(bp["cross"]["o"], layers.merge_heads(out.transpose(1, 2).to(h.dtype)))
-        h = h + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], h))
-    return acc / n_sel
+        out = layers.merge_heads(out.transpose(1, 2).to(h.dtype))
+        h = h + layers.linear(bp["cross"]["o"], out, tp=tp)
+        h = h + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], h), tp=tp)
+    return all_reduce_model(acc, tp) / n_sel
 
 
 def median_filter(matrix: np.ndarray, width: int = 7) -> np.ndarray:

@@ -286,7 +286,10 @@ def beam_decode(
     contiguous share, rank ``mesh.data_index`` of equal shares. Selection
     stays local, since a beam permutation never crosses samples; under
     "hybrid" the pending permutation is numbered by global row, ``(row0 +
-    b) · K + src``, so that K2′ receives what JAX's shard receives."""
+    b) · K + src``, so that K2′ receives what JAX's shard receives. A model
+    axis > 1 cuts the heads: the caches hold this rank's, every rank of the
+    model group selects on the same all-reduced logits, and "off" reorders
+    the local heads' rows through K4."""
     global steps
     b, p_len = prompt.shape
     k = beam_size
@@ -297,12 +300,12 @@ def beam_decode(
     device = enc_out.device
     prompt = prompt.to(device=device, dtype=torch.long)
     store = kv_cache_dtype or compute_dtype
-    tp = mesh.shape[mesh.axis_names[1]] if mesh is not None else 1
+    tp = mesh.model_size if mesh is not None else 1
     mode = resolve_fused(fused, dims, device, store, tp=tp)
     # Global number of this rank's first beam row.
     row0 = mesh.data_index * bk if mesh is not None else 0
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype)
+        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh)
 
     def logprobs_of(logits, tokens, pos):
         if logit_bias is not None:
@@ -313,8 +316,10 @@ def beam_decode(
 
     # --- prefill once per utterance (its beams are identical at the
     # prompt), then fan the cache out to the beam axis ---
-    cache_b = init_kv_cache(dims, b, total_len, dtype=store, device=device)
-    logits, cache_b = decoder_prefill(params, prompt, cache_b, cross_kv, dims, compute_dtype)
+    cache_b = init_kv_cache(dims, b, total_len, dtype=store, device=device, tp=mesh)
+    logits, cache_b = decoder_prefill(
+        params, prompt, cache_b, cross_kv, dims, compute_dtype, tp=mesh
+    )
     out_extra: Tuple[torch.Tensor, ...] = ()
     if no_speech is not None:
         sot_index, nospeech_id = no_speech
@@ -394,11 +399,12 @@ def beam_decode(
         elif mode == "lineage":
             logits, cache, lineage = decoder_step_lineage(
                 params, prev, pos - 1, cache, lineage, cross_kv, dims, compute_dtype,
-                beam_width=k,
+                beam_width=k, tp=mesh,
             )
         else:
             logits, cache = decoder_step(
-                params, prev, pos - 1, cache, cross_kv, dims, compute_dtype, beam_width=k
+                params, prev, pos - 1, cache, cross_kv, dims, compute_dtype, beam_width=k,
+                tp=mesh,
             )
         lp = logprobs_of(logits, tokens, pos)
         tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)

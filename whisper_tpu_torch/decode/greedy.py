@@ -17,6 +17,10 @@ step. A CUDA generator (Philox) and a CPU one (MT19937) give different
 streams from the same seed, and neither is JAX's ``fold_in`` key stream:
 sampled tokens agree across devices and with JAX only at T = 0 or with
 the same injected noise.
+
+On a tensor-parallel ``mesh`` every rank of a model group holds the same
+all-reduced logits, so every rank picks the same tokens (and draws the
+same noise: the engine seeds the generator by data index).
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ from whisper_tpu_torch.models.decoder import (
     precompute_cross_kv,
 )
 from whisper_tpu_torch.models.params import Params
+
+# Decode steps run by greedy_decode in this process (the prefill not
+# counted): with the collectives' counts it shows how many ran per step.
+steps = 0
 
 
 def argmax_last(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -73,6 +81,7 @@ def greedy_decode(
     generator: Optional[torch.Generator] = None,  # on enc_out's device; with temperature
     return_logprobs: bool = False,
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
+    mesh=None,  # parallel.mesh.Mesh of this rank: its model axis cuts the heads
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, P + max_new_tokens], lengths [B]) — plus
     (sum_logprobs [B] f32,) when ``return_logprobs``, plus
@@ -87,6 +96,7 @@ def greedy_decode(
     (before the noise) at each chosen token, the first pick and the
     terminating EOT included; rows stop adding once frozen (openai's
     ``GreedyDecoder.update`` bookkeeping for the fallback's logprob gate)."""
+    global steps
     if temperature is not None and generator is None:
         raise ValueError("temperature sampling requires a torch.Generator")
     b, p_len = prompt.shape
@@ -98,9 +108,9 @@ def greedy_decode(
     device = enc_out.device
     prompt = prompt.to(device=device, dtype=torch.long)
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype)
+        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh)
     cache = init_kv_cache(
-        dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device
+        dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device, tp=mesh
     )
 
     def pick(logits: torch.Tensor, tokens: torch.Tensor, pos: int):
@@ -120,7 +130,7 @@ def greedy_decode(
         lp = torch.log_softmax(logits.float(), dim=-1)
         return choice, lp.gather(-1, choice[:, None])[:, 0]
 
-    logits, cache = decoder_prefill(params, prompt, cache, cross_kv, dims, compute_dtype)
+    logits, cache = decoder_prefill(params, prompt, cache, cross_kv, dims, compute_dtype, tp=mesh)
     out_extra: Tuple[torch.Tensor, ...] = ()
     if no_speech is not None:
         sot_index, nospeech_id = no_speech
@@ -139,8 +149,9 @@ def greedy_decode(
     pos = p_len + 1
     while pos < total_len and not bool(finished.all()):
         logits, cache = decoder_step(
-            params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype
+            params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype, tp=mesh
         )
+        steps += 1
         nxt, lp = pick(logits, tokens, pos)
         if return_logprobs:  # frozen rows stop adding
             sum_lp = sum_lp + torch.where(finished, 0.0, lp)

@@ -82,6 +82,8 @@ def speculative_greedy_decode(
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
     cross_kv_t: Optional[KVCache] = None,  # the target's, when the caller
     # already computed it (language detection shares it)
+    mesh=None,  # parallel.mesh.Mesh of this rank: its model axis cuts the
+    # target's heads; the draft stays whole on every rank, as in JAX
 ) -> Tuple:
     """Returns (tokens [B, P + max_new], lengths [B], stats), plus
     (no_speech_probs [B],) when ``no_speech`` is given. ``stats`` is
@@ -109,7 +111,9 @@ def speculative_greedy_decode(
         enc_out_d = enc_out_t.to(compute_dtype)
     cross_t = cross_kv_t
     if cross_t is None:
-        cross_t = precompute_cross_kv(params_t, enc_out_t, dims_t, kv_dtype=kv_cache_dtype)
+        cross_t = precompute_cross_kv(
+            params_t, enc_out_t, dims_t, kv_dtype=kv_cache_dtype, tp=mesh
+        )
     cross_d = precompute_cross_kv(params_d, enc_out_d, dims_d, kv_dtype=kv_cache_dtype)
 
     def draft_ids(tokens: torch.Tensor) -> torch.Tensor:
@@ -127,8 +131,10 @@ def speculative_greedy_decode(
 
     # --- prefill both models; the first token comes from the target ---
     kv_dt = kv_cache_dtype or compute_dtype
-    cache_t = init_kv_cache(dims_t, b, l_buf, dtype=kv_dt, device=device)
-    logits_t, cache_t = decoder_prefill(params_t, prompt, cache_t, cross_t, dims_t, compute_dtype)
+    cache_t = init_kv_cache(dims_t, b, l_buf, dtype=kv_dt, device=device, tp=mesh)
+    logits_t, cache_t = decoder_prefill(
+        params_t, prompt, cache_t, cross_t, dims_t, compute_dtype, tp=mesh
+    )
     cache_d = init_kv_cache(dims_d, b, l_buf, dtype=kv_dt, device=device)
     _, cache_d = decoder_prefill(params_d, draft_ids(prompt), cache_d, cross_d, dims_d, compute_dtype)
     extra: Tuple[torch.Tensor, ...] = ()
@@ -169,7 +175,7 @@ def speculative_greedy_decode(
         # --- verify: one target forward over [prev, d_1 .. d_k] ---
         window = torch.cat([prev[:, None], drafts], dim=1)
         logits_w, cache_t = decoder_window(
-            params_t, window, pos - 1, cache_t, cross_t, dims_t, compute_dtype
+            params_t, window, pos - 1, cache_t, cross_t, dims_t, compute_dtype, tp=mesh
         )
         a = torch.stack(
             [argmax_last(constrain(logits_w[:, j, :], prov, pos + j)) for j in range(k + 1)], dim=1

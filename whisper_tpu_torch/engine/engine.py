@@ -40,16 +40,21 @@ On top of that one run, as in JAX:
   decode without the draft, as in JAX;
 * **``initial_prompt`` text**, encoded by ``tokenizer/bpe.py``.
 
-``mesh_shape=(d, 1)`` runs the engine as one rank of a data-parallel
-world of d processes (``parallel/``, over gloo): each rank encodes and
-decodes its contiguous share of the batch (beam "hybrid" through K2′), and
-every rank returns the full, ordered result list. ``transcribe_files``
-reads on each rank only that rank's files.
+``mesh_shape=(d, m)`` runs the engine as one rank of a world of d · m
+processes (``parallel/``, over gloo), ranks numbered with the model axis
+innermost. Along ``data`` each group of m ranks encodes and decodes its
+contiguous share of the batch (beam "hybrid" through K2′ where m = 1), and
+every rank returns the full, ordered result list. Along ``model`` the m
+ranks of a group hold the model between them (Megatron tensor parallelism,
+``parallel/sharding.py``): the weights are quantised whole, then cut, then
+moved to the device; every layer runs on the rank's heads and the layers
+all-reduce over the group (``parallel/collectives.py``), so every rank of
+the group decodes the same tokens. A speculative draft stays whole on
+every rank, as in JAX. ``transcribe_files`` reads on each data rank only
+its files (with the native loader when it is built, ``native/``).
 
 Entry points take ``device=`` and default to ``"cuda"``: asking for CUDA
-where there is none raises, and the CPU runs only when asked for. The one
-config option outside the port, a model axis > 1 (tensor parallelism),
-raises ``NotImplementedError`` at construction.
+where there is none raises, and the CPU runs only when asked for.
 """
 
 from __future__ import annotations
@@ -89,11 +94,14 @@ from whisper_tpu_torch.models.quantize import is_quantized, quantize_params
 from whisper_tpu_torch.parallel.mesh import make_mesh, rank_device
 from whisper_tpu_torch.parallel.multihost import (
     allgather_rows,
+    data_processes,
     host_shard,
     load_files_sharded,
+    read_files,
     uniform_host_rows,
     world_size,
 )
+from whisper_tpu_torch.parallel.sharding import shard_params
 from whisper_tpu_torch.tokenizer.binfmt import read_bin
 from whisper_tpu_torch.tokenizer.bpe import encode_initial_prompt
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
@@ -192,20 +200,14 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
-def _unsupported(config: EngineConfig) -> List[str]:
-    """Config options outside the ported slice, by name."""
-    out = []
-    if int(np.prod(config.mesh_shape[1:])) > 1:
-        out.append(f"tensor parallelism: mesh_shape={tuple(config.mesh_shape)} (model axis > 1)")
-    return out
-
-
 @dataclasses.dataclass
 class _Assets:
     params: Params
     dims: ModelDims
     vocab: Vocab
     mel_filters: np.ndarray
+    # (model index, model size) of the slice ``params`` holds; None: whole
+    shard: Optional[Tuple[int, int]] = None
 
 
 class Engine:
@@ -219,15 +221,10 @@ class Engine:
         device: Union[str, torch.device] = "cuda",
         draft_params: Optional[Params] = None,
     ):
-        missing = _unsupported(config)
-        if missing:
-            raise NotImplementedError(
-                "not ported to whisper_tpu_torch yet: " + ", ".join(missing)
-            )
         if config.quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization: {config.quantization!r}")
         self.device = resolve_device(device)
-        # A data-parallel mesh: this process is one rank of it, on its device.
+        # A mesh: this process is one rank of it, on its device.
         self.mesh = None
         if int(np.prod(config.mesh_shape)) > 1:
             self.mesh = make_mesh(
@@ -239,10 +236,24 @@ class Engine:
         self.vocab = assets.vocab
         self._compute_dtype = getattr(torch, config.dtype)
         self._kv_dtype = getattr(torch, config.kv_cache_dtype) if config.kv_cache_dtype else None
-        params = to_device(assets.params, self.device)
+        params = assets.params
+        tp = self.mesh is not None and self.mesh.model_size > 1
+        if not tp:
+            params = to_device(params, self.device)  # quantised on the device
         if config.quantization == "int8" and not is_quantized(params):
-            params = quantize_params(params)
-        assets = dataclasses.replace(assets, params=params)
+            params = quantize_params(params)  # the whole tree, before any cut
+        shard = assets.shard  # set where this rank's engine is built again on its assets
+        here = (self.mesh.model_index, self.mesh.model_size) if tp else None
+        if shard is not None and shard != here:
+            raise ValueError(
+                f"assets hold the model slice {shard} (index, size), but this engine's "
+                f"rank needs {here if tp else 'the whole model'}"
+            )
+        if tp and shard is None:
+            params = shard_params(params, self.mesh, self.dims)
+            shard = here
+        params = to_device(params, self.device)
+        assets = dataclasses.replace(assets, params=params, shard=shard)
         self.assets = assets
         # language=None on a multilingual model → per-utterance detection.
         self._autodetect = config.language is None and config.multilingual
@@ -379,7 +390,7 @@ class Engine:
             else (self.assets.params, self.dims, self._filters)
         )
         mel = log_mel_spectrogram(samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32)
-        enc_out = encode(params, mel.to(self._compute_dtype), dims)
+        enc_out = encode(params, mel.to(self._compute_dtype), dims, tp=None if draft else self.mesh)
         if audio_ctx is not None and audio_ctx < enc_out.shape[1]:
             enc_out = enc_out[:, :audio_ctx]
         return enc_out
@@ -396,7 +407,7 @@ class Engine:
         if not self._autodetect:
             return prompts, None
         cross_kv = precompute_cross_kv(
-            params, enc_out, self.dims, kv_dtype=self._kv_dtype
+            params, enc_out, self.dims, kv_dtype=self._kv_dtype, tp=self.mesh
         )
         lang_toks = detect_language_tokens(
             params,
@@ -405,6 +416,7 @@ class Engine:
             sot=self.vocab.specials.sot,
             compute_dtype=self._compute_dtype,
             cross_kv=cross_kv,
+            tp=self.mesh,
         )
         prompts[:, self._sot_index + 1] = lang_toks
         return prompts, cross_kv
@@ -447,7 +459,7 @@ class Engine:
         if temperature is not None:
             out = greedy_decode(
                 self.assets.params, enc_out, prompts, temperature=temperature,
-                generator=generator, return_logprobs=True, **common,
+                generator=generator, return_logprobs=True, mesh=self.mesh, **common,
             )
             tokens, lengths, sum_lp = out[:3]
             generated = (lengths - prompts.shape[1]).clamp(min=1).float()
@@ -459,7 +471,7 @@ class Engine:
                 max_new_tokens=self._max_new, k_draft=self.config.k_draft,
                 enc_out_d=draft_enc, logit_bias=self._logit_bias, rules=self._rules,
                 compute_dtype=self._compute_dtype, kv_cache_dtype=self._kv_dtype,
-                no_speech=ns, cross_kv_t=cross_kv,
+                no_speech=ns, cross_kv_t=cross_kv, mesh=self.mesh,
             )
             self.last_spec_stats = out[2]
             return out[0], out[1], None, out[3] if ns else None
@@ -469,7 +481,7 @@ class Engine:
                 fused=self.config.fused_step, mesh=self.mesh, **common,
             )
             return out[0], out[1], out[2], out[3] if ns else None
-        out = greedy_decode(self.assets.params, enc_out, prompts, **common)
+        out = greedy_decode(self.assets.params, enc_out, prompts, mesh=self.mesh, **common)
         return out[0], out[1], None, out[2] if ns else None
 
     def _generator(self, attempt: int) -> torch.Generator:
@@ -477,7 +489,8 @@ class Engine:
         a fresh generator on the engine's device seeded from
         ``(sampling_seed, attempt, rank)`` (JAX folds the attempt into
         ``PRNGKey(sampling_seed)``; the rank keeps the ranks' rows from
-        drawing the same noise)."""
+        drawing the same noise; the ranks of one model group hold the same
+        rows and draw the same noise)."""
         rank = self.mesh.data_index if self.mesh is not None else 0
         seed = np.random.SeedSequence([self.config.sampling_seed, attempt, rank])
         return torch.Generator(device=self.device).manual_seed(
@@ -512,7 +525,7 @@ class Engine:
         ]
         if self.mesh is None:
             return host
-        return [None if x is None else allgather_rows(x) for x in host]
+        return [None if x is None else allgather_rows(x, self.mesh) for x in host]
 
     # --- host side ---------------------------------------------------------
     def _prepare_batch(self, samples: np.ndarray):
@@ -703,14 +716,14 @@ class Engine:
         f32 on the host: each rank aligns its own rows, and the matrices
         are gathered like the tokens."""
         cross_kv = precompute_cross_kv(
-            self.assets.params, enc_out, self.dims, kv_dtype=self._kv_dtype
+            self.assets.params, enc_out, self.dims, kv_dtype=self._kv_dtype, tp=self.mesh
         )
         toks = torch.from_numpy(self._local(np.asarray(tokens))).to(self.device, torch.long)
         matrix = alignment_matrix(
             self.assets.params, toks, cross_kv, self.dims, self._align_mask,
-            compute_dtype=self._compute_dtype,
+            compute_dtype=self._compute_dtype, tp=self.mesh,
         ).cpu().numpy()
-        return matrix if self.mesh is None else allgather_rows(matrix)
+        return matrix if self.mesh is None else allgather_rows(matrix, self.mesh)
 
     def transcribe_batches(
         self, batches: Sequence[np.ndarray], omit_special_tokens: bool = True
@@ -722,17 +735,24 @@ class Engine:
         self, paths: Sequence[str], omit_special_tokens: bool = True
     ) -> List[TranscriptionResult]:
         """Batch file transcription: N files → one padded [N, 480000] host
-        batch → one run. On a mesh of several processes each rank reads
-        only its share of ``paths`` (``parallel/multihost.py``), and every
-        rank returns the full, path-ordered result list."""
+        batch → one run. The files are read by the native loader when it is
+        built (``native/``; plain WAVs without ``reference_quirks``), else
+        by the Python readers, to the same samples. On a mesh of several
+        processes each data rank reads only its share of ``paths``
+        (``parallel/multihost.py``), and every rank returns the full,
+        path-ordered result list."""
         if self.mesh is not None and world_size() > 1:
             return self._transcribe_files_multiprocess(paths, omit_special_tokens)
-        batch = np.zeros((len(paths), N_SAMPLES), dtype=np.float32)
-        for i, p in enumerate(paths):
-            s = self._read_audio(p)
-            n = min(len(s), N_SAMPLES)
-            batch[i, :n] = s[:n]
+        batch = read_files(paths, N_SAMPLES, self._read_audio, self._native_reads(paths))
         return self.transcribe_batch(batch, omit_special_tokens)
+
+    def _native_reads(self, paths: Sequence[str]) -> bool:
+        """Whether the native loader reads ``paths`` as :meth:`_read_audio`
+        does: WAVs only (no raw PCM) and without the reference's stereo
+        quirk, which its batch loader does not take."""
+        return not self.config.reference_quirks and not any(
+            p.endswith((".pcm", ".raw")) for p in paths
+        )
 
     def _transcribe_files_multiprocess(
         self, paths: Sequence[str], omit_special_tokens: bool
@@ -787,20 +807,22 @@ class Engine:
         back to path order. Returns (per-path [(tokens, length,
         avg_logprob, no_speech_prob)], mel_ms, model_ms).
 
-        The gathered rows are rank-major, every rank padded to the same
-        ``uniform_host_rows`` count; the row → path mapping is rebuilt from
-        the same shard function, so every rank computes the same rows. The
+        The gathered rows are data-rank-major, every data rank padded to the
+        same ``uniform_host_rows`` count (the ranks of a model group read the
+        same files); the row → path mapping is rebuilt from the same shard
+        function, so every rank computes the same rows. The
         rows ship as float32 and "auto" crops to the full window, as on
         JAX's multi-process path."""
         rows, _ = load_files_sharded(
-            path_list, self.mesh, max_len=N_SAMPLES, read=self._read_audio
+            path_list, self.mesh, max_len=N_SAMPLES, read=self._read_audio,
+            native=self._native_reads(path_list),
         )
         tokens, lengths, avg_lp, nsp, mel_ms, model_ms, _ = self._run(
             rows, self._resolve_audio_ctx(None), temperature=temperature, generator=generator
         )
         per_host = uniform_host_rows(len(path_list), self.mesh)
         out: List[Optional[tuple]] = [None] * len(path_list)
-        pc = world_size()
+        pc = data_processes(self.mesh)[1]
         for p in range(pc):
             s, e = host_shard(len(path_list), p, pc)
             row = p * per_host

@@ -27,7 +27,11 @@ from typing import Optional
 import numpy as np
 
 from whisper_tpu_torch.audio.wav import read_wav_bytes
-from whisper_tpu_torch.engine.serving import AsyncTranscriber, ContinuousTranscriber
+from whisper_tpu_torch.engine.serving import (
+    AsyncTranscriber,
+    ContinuousTranscriber,
+    refuse_tensor_parallel,
+)
 
 
 def _parse_audio(body: bytes, content_type: str) -> np.ndarray:
@@ -52,6 +56,7 @@ class TranscribeServer:
         n_slots: int = 8,
         max_batch: int = 8,
     ):
+        refuse_tensor_parallel(engine, "TranscribeServer")
         self.engine = engine
         self.mode = mode
         self._lock = threading.Lock()

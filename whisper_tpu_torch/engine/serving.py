@@ -65,6 +65,19 @@ MSG_PROCESSING = "Processing..."
 MSG_DONE = "Processing done...!"
 
 
+def refuse_tensor_parallel(engine: Engine, name: str) -> None:
+    """Serving runs on one rank: an engine on a mesh with a model axis > 1
+    (whose ranks must call every forward together) raises
+    ``NotImplementedError`` naming ``name``. JAX's serving classes do not
+    run on a mesh either."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.model_size > 1:
+        raise NotImplementedError(
+            f"{name} does not run on a tensor-parallel mesh (mesh_shape="
+            f"{tuple(engine.config.mesh_shape)}): its requests arrive on one rank"
+        )
+
+
 @dataclass
 class _Request:
     samples: np.ndarray
@@ -90,6 +103,7 @@ class AsyncTranscriber:
         max_wait_ms: float = 5.0,
         on_status: Optional[Callable[[str], None]] = None,
     ):
+        refuse_tensor_parallel(engine, type(self).__name__)
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
@@ -267,6 +281,7 @@ class _ContinuousBase:
         encode_device=None,  # prefill's device: the engine's when None
         slot_buckets: Optional[List[int]] = None,
     ):
+        refuse_tensor_parallel(engine, type(self).__name__)
         if engine.config.beam_size > 1:
             raise ValueError("continuous batching is greedy-only")
         self.engine = engine

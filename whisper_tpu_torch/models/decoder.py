@@ -29,6 +29,14 @@ after a cache reorder and the hybrid step run the same arithmetic on the
 same bytes, and their logits are bitwise equal on any device. With
 per-row positions the rows end at different depths, so the read covers
 the whole cache under a per-row mask, as JAX's does.
+
+Tensor parallelism (``tp``: this rank's ``parallel.mesh.Mesh``): the
+caches and cross-K/V hold this rank's ``n_text_head / m`` heads, and a
+forward makes ``2 + 3 · n_text_layer`` collectives (the embedding's gather,
+the self-attention o, cross-attention o and fc2 of every layer, the
+logits). The hybrid step (K2) is not run there: its rows span every head,
+so ``decode/beam.resolve_fused`` refuses it on a model axis > 1, as JAX
+does.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ import torch
 from whisper_tpu_torch.config import ModelDims
 from whisper_tpu_torch.models import layers
 from whisper_tpu_torch.models.params import Params
+from whisper_tpu_torch.parallel import collectives
+from whisper_tpu_torch.parallel.collectives import local_heads
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -53,9 +63,12 @@ def init_kv_cache(
     max_len: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cpu",
+    tp=None,
 ) -> KVCache:
+    """Self-attention cache [L, batch, max_len, H, Dh] (H: this rank's
+    heads under ``tp``), zeros."""
     max_len = max_len or dims.n_text_ctx
-    h, dh = dims.n_text_head, dims.n_text_state // dims.n_text_head
+    h, dh = local_heads(dims.n_text_head, tp), dims.n_text_state // dims.n_text_head
     shape = (dims.n_text_layer, batch, max_len, h, dh)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -68,11 +81,14 @@ def precompute_cross_kv(
     enc_out: torch.Tensor,
     dims: ModelDims,
     kv_dtype: Optional[torch.dtype] = None,
+    tp=None,
 ) -> KVCache:
     """Cross-attention K/V over encoder states, computed once per utterance:
-    [L, B, H, Dh, n_audio_ctx]. ``kv_dtype`` optionally sets the storage
-    dtype (e.g. ``torch.float8_e4m3fn``; attention upcasts at use)."""
-    n_head = dims.n_text_head
+    [L, B, H, Dh, n_audio_ctx] (H: this rank's heads under ``tp``, from its
+    column-parallel k and v; no collective). ``kv_dtype`` optionally sets
+    the storage dtype (e.g. ``torch.float8_e4m3fn``; attention upcasts at
+    use)."""
+    n_head = local_heads(dims.n_text_head, tp)
     ks, vs = [], []
     for bp in params["decoder"]["blocks"]:
         k = layers.split_heads(layers.linear(bp["cross"]["k"], enc_out), n_head)
@@ -86,10 +102,10 @@ def precompute_cross_kv(
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype) -> torch.Tensor:
+def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype, tp=None) -> torch.Tensor:
     """Token plus positional embedding for positions [pos, end), in the
     compute dtype."""
-    return (layers.embed(dec["tok_emb"], tokens) + dec["pos_emb"][pos:end]).to(compute_dtype)
+    return (layers.embed(dec["tok_emb"], tokens, tp) + dec["pos_emb"][pos:end]).to(compute_dtype)
 
 
 def scatter_rows(dst: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
@@ -103,7 +119,7 @@ def scatter_rows(dst: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> Non
     dst.view(torch.uint8)[rows, pos] = new.to(dst.dtype).contiguous().view(torch.uint8)
 
 
-def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype):
+def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype, tp=None):
     """The per-row form of :func:`_decoder_forward`: row ``b``'s tokens sit
     at ``pos[b] + i``, i < T. The embedding gathers each row's positions,
     clamped to the table's last row (a speculative window may reach past
@@ -124,7 +140,7 @@ def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype):
     else:
         row_pos = pos[:, None] + torch.arange(t, device=pos.device)[None, :]  # [B, T]
         pos_emb = table[row_pos.clamp(max=table.shape[0] - 1)]
-    x = (layers.embed(dec["tok_emb"], tokens) + pos_emb).to(compute_dtype)
+    x = (layers.embed(dec["tok_emb"], tokens, tp) + pos_emb).to(compute_dtype)
     k_pos = torch.arange(ctx, device=x.device)
     q_pos = row_pos[:, None] if t == 1 else row_pos  # [B, T]
     mask = torch.where(k_pos[None, None, :] <= q_pos[:, :, None], 0.0, NEG_INF)
@@ -139,10 +155,11 @@ def _rows_forward(dec, tokens, pos, cache, cross_kv, dims, compute_dtype):
             scatter_rows(cache["v"][layer], row_pos, v_new)
         return q, cache["k"][layer], cache["v"][layer], mask
 
-    return _layers(dec, x, dims.n_text_head, cross_kv, 1, self_kv), cache
+    n_head = local_heads(dims.n_text_head, tp)
+    return _layers(dec, x, n_head, cross_kv, 1, self_kv, tp), cache
 
 
-def _cross_block(bp, x, n_head, xk_l, xv_l, beam_width: int) -> torch.Tensor:
+def _cross_block(bp, x, n_head, xk_l, xv_l, beam_width: int, tp=None) -> torch.Tensor:
     """Residual cross-attention over precomputed encoder K/V. Beams fold
     into the query-row axis: [B·K, T, H, Dh] → [B, K·T, H, Dh] against
     cross-KV stored at batch B, which is never replicated."""
@@ -152,26 +169,29 @@ def _cross_block(bp, x, n_head, xk_l, xv_l, beam_width: int) -> torch.Tensor:
     out = layers.cross_attention_T(
         qx.reshape(bk // beam_width, beam_width * t, h, dh), xk_l, xv_l
     ).reshape(bk, t, h, dh)
-    return x + layers.linear(bp["cross"]["o"], layers.merge_heads(out))
+    return x + layers.linear(bp["cross"]["o"], layers.merge_heads(out), tp=tp)
 
 
-def _layers(dec, x, n_head, cross_kv, beam_width: int, self_kv) -> torch.Tensor:
+def _layers(dec, x, n_head, cross_kv, beam_width: int, self_kv, tp=None) -> torch.Tensor:
     """The decoder's layer stack and unembedding over embedded tokens ``x``
     [BK, T, d], shared by every step mode. Only the self-attention's cache
     differs between them: ``self_kv(layer, q, k_new, v_new)`` stores the new
     K/V rows ([BK, T, H, Dh]) and returns the operands ``(q, k, v, mask)``
     of the one ``layers.qkv_attention`` call, whose output is reshaped back
-    to ``q``'s shape. Returns logits [BK, T, n_vocab] float32."""
+    to ``q``'s shape. ``n_head``: this rank's heads. Returns logits [BK, T,
+    n_vocab] float32."""
     for layer, bp in enumerate(dec["blocks"]):
         hn = layers.layer_norm(bp["ln1"], x)
         q, k_new, v_new = (
             layers.split_heads(layers.linear(bp["attn"][n], hn), n_head) for n in "qkv"
         )
         attn = layers.qkv_attention(*self_kv(layer, q, k_new, v_new)).reshape(q.shape)
-        x = x + layers.linear(bp["attn"]["o"], layers.merge_heads(attn))
-        x = _cross_block(bp, x, n_head, cross_kv["k"][layer], cross_kv["v"][layer], beam_width)
-        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], x))
-    return layers.unembed(dec["tok_emb"], layers.layer_norm(dec["ln"], x))
+        x = x + layers.linear(bp["attn"]["o"], layers.merge_heads(attn), tp=tp)
+        x = _cross_block(
+            bp, x, n_head, cross_kv["k"][layer], cross_kv["v"][layer], beam_width, tp
+        )
+        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], x), tp=tp)
+    return layers.unembed(dec["tok_emb"], layers.layer_norm(dec["ln"], x), tp)
 
 
 def _decoder_forward(
@@ -184,6 +204,7 @@ def _decoder_forward(
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
     beam_width: int = 1,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Shared body for prefill (T = prompt length) and step (T = 1).
 
@@ -198,13 +219,13 @@ def _decoder_forward(
     if isinstance(pos_offset, torch.Tensor):
         if beam_width != 1:
             raise ValueError("per-row positions decode one hypothesis per row")
-        return _rows_forward(dec, tokens, pos_offset, cache, cross_kv, dims, compute_dtype)
+        return _rows_forward(dec, tokens, pos_offset, cache, cross_kv, dims, compute_dtype, tp)
     t = tokens.shape[1]
     end = pos_offset + t
     if end > cache["k"].shape[2]:
         raise ValueError(f"positions up to {end} exceed the cache length")
 
-    x = _embed_at(dec, tokens, pos_offset, end, compute_dtype)
+    x = _embed_at(dec, tokens, pos_offset, end, compute_dtype, tp)
 
     # Causal mask over the read window: query at absolute position
     # pos_offset + i sees keys at positions <= that. A single new token sees
@@ -220,9 +241,11 @@ def _decoder_forward(
         cache["v"][layer, :, pos_offset:end] = v_new.to(cache["v"].dtype)
         return q, cache["k"][layer, :, :end], cache["v"][layer, :, :end], mask
 
-    return _layers(dec, x, dims.n_text_head, cross_kv, beam_width, self_kv), cache
+    n_head = local_heads(dims.n_text_head, tp)
+    return _layers(dec, x, n_head, cross_kv, beam_width, self_kv, tp), cache
 
 
+@collectives.stage("window")
 def decoder_window(
     params: Params,
     tokens: torch.Tensor,  # [B, T] — T consecutive tokens per row
@@ -231,15 +254,17 @@ def decoder_window(
     cross_kv: KVCache,
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Multi-token forward at per-row absolute positions: the speculative
     verify pass (``decode/speculative.py``), one target forward that scores
     a whole window of draft proposals and writes their K/V rows in place.
     Row b's window covers positions ``pos[b] .. pos[b] + T - 1``; the caller
     keeps them inside the cache. Returns (logits [B, T, V] f32, cache)."""
-    return _decoder_forward(params, tokens, pos, cache, cross_kv, dims, compute_dtype)
+    return _decoder_forward(params, tokens, pos, cache, cross_kv, dims, compute_dtype, tp=tp)
 
 
+@collectives.stage("prefill")
 def decoder_prefill(
     params: Params,
     prompt: torch.Tensor,  # [B, P]
@@ -247,12 +272,14 @@ def decoder_prefill(
     cross_kv: KVCache,
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the static prompt through the decoder once, filling cache[0:P].
     Returns (logits [B, P, V], cache)."""
-    return _decoder_forward(params, prompt, 0, cache, cross_kv, dims, compute_dtype)
+    return _decoder_forward(params, prompt, 0, cache, cross_kv, dims, compute_dtype, tp=tp)
 
 
+@collectives.stage("step")
 def decoder_step(
     params: Params,
     token: torch.Tensor,  # [B] — token at absolute position `pos`
@@ -262,6 +289,7 @@ def decoder_step(
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
     beam_width: int = 1,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive step. ``beam_width=K``: the token and cache batch
     axis is [B·K] while ``cross_kv`` stays at B. Returns (logits [B, V],
@@ -270,7 +298,7 @@ def decoder_step(
         pos = int(pos)
     logits, cache = _decoder_forward(
         params, token[:, None], pos, cache, cross_kv, dims, compute_dtype,
-        beam_width=beam_width,
+        beam_width=beam_width, tp=tp,
     )
     return logits[:, 0, :], cache
 
@@ -355,6 +383,7 @@ def init_lineage(
     return torch.where(written, own, torch.full_like(own, -1))
 
 
+@collectives.stage("step")
 def decoder_step_lineage(
     params: Params,
     token: torch.Tensor,  # [B·K] — token at absolute position `pos`
@@ -365,6 +394,7 @@ def decoder_step_lineage(
     dims: ModelDims,
     compute_dtype: torch.dtype = torch.float32,
     beam_width: int = 1,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """One beam step with the beam permutation turned into a mask: every
     logical beam writes position ``pos`` into its own slot, and attention
@@ -378,15 +408,15 @@ def decoder_step_lineage(
     lineage written in place: the new rows at ``pos`` and lineage column
     ``pos`` set to each row's own slot."""
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = local_heads(dims.n_text_head, tp)
     bk = token.shape[0]
     kw = beam_width
     b = bk // kw
     pos = int(pos)
     w = pos + 1
-    dh = dims.n_text_state // n_head
+    dh = dims.n_text_state // dims.n_text_head
 
-    x = _embed_at(dec, token[:, None], pos, pos + 1, compute_dtype)
+    x = _embed_at(dec, token[:, None], pos, pos + 1, compute_dtype, tp)
     own = torch.arange(bk, dtype=torch.int32, device=lineage.device) % kw
     lineage[:, pos] = own
     # Bias over the flattened (slot, position) key axis, shared by every
@@ -404,5 +434,5 @@ def decoder_step_lineage(
         k4, v4 = (cache[n][layer, :, :w].reshape(b, kw * w, n_head, dh) for n in "kv")
         return q.reshape(b, kw, n_head, dh), k4, v4, bias
 
-    logits = _layers(dec, x, n_head, cross_kv, kw, self_kv)
+    logits = _layers(dec, x, n_head, cross_kv, kw, self_kv, tp)
     return logits[:, 0, :], cache, lineage

@@ -2,6 +2,9 @@
 
 Counterpart of ``whisper_tpu/models/encoder.py``; the ``lax.scan`` over
 stacked layers becomes a Python loop over the per-layer parameter dicts.
+Under tensor parallelism (``tp``) each rank runs its ``n_audio_head / m``
+heads and two all-reduces per layer (o and fc2): ``2 · n_audio_layer``
+collectives per encode.
 """
 
 from __future__ import annotations
@@ -11,12 +14,15 @@ import torch
 from whisper_tpu_torch.config import ModelDims
 from whisper_tpu_torch.models import layers
 from whisper_tpu_torch.models.params import Params, sinusoid_position_embedding
+from whisper_tpu_torch.parallel import collectives
 
 
-def encode(params: Params, mel: torch.Tensor, dims: ModelDims) -> torch.Tensor:
+@collectives.stage("encode")
+def encode(params: Params, mel: torch.Tensor, dims: ModelDims, tp=None) -> torch.Tensor:
     """[B, n_mels, n_frames] → [B, n_frames // 2, n_audio_state].
 
-    Self-attention goes through K1 (``ops.attention.fused_self_attention``)."""
+    Self-attention goes through K1 (``ops.attention.fused_self_attention``),
+    on this rank's heads under ``tp``."""
     enc = params["encoder"]
     x = mel.transpose(-1, -2)  # [B, T, n_mels] — feature-last for conv
     x = layers.gelu(layers.conv1d(enc["conv1"], x, stride=1))
@@ -25,10 +31,10 @@ def encode(params: Params, mel: torch.Tensor, dims: ModelDims) -> torch.Tensor:
     pos = sinusoid_position_embedding(x.shape[1], dims.n_audio_state)
     x = x + torch.from_numpy(pos).to(device=x.device, dtype=x.dtype)
 
-    n_head = dims.n_audio_head
+    n_head = collectives.local_heads(dims.n_audio_head, tp)
     for bp in enc["blocks"]:
         x = x + layers.mha_self(
-            bp["attn"], layers.layer_norm(bp["ln1"], x), n_head, fused=True
+            bp["attn"], layers.layer_norm(bp["ln1"], x), n_head, fused=True, tp=tp
         )
-        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln2"], x))
+        x = x + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln2"], x), tp=tp)
     return layers.layer_norm(enc["ln_post"], x)

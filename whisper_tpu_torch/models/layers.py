@@ -27,6 +27,18 @@ per output, the same class as the float weights above). The int8 embedding
 table ``{"q", "s"}`` is per-row scaled, in f32. fp8 K/V (``itemsize == 1``,
 ``kv_cache_dtype="float8_e4m3fn"``) are upcast to the query's dtype at use,
 so attention over an fp8 cache returns the query's dtype, as in JAX.
+
+Tensor parallelism (``tp``: this rank's ``parallel.mesh.Mesh``, or None):
+the parameters are this rank's slices (``parallel/sharding.py``). A
+row-parallel ``linear`` (the o projections, fc2) forms its partial product
+from f32 operands and all-reduces it over the model group, before the int8
+rescale, the bias and the cast, where GSPMD sums JAX's f32 einsum result
+(in bf16 one rounding per output, as in JAX, where one process rounds
+twice); ``embed`` gathers the group's feature slices; ``unembed``
+contracts this rank's feature slice and all-reduces the f32 partial
+logits. Each collective is a no-op without a model axis
+(``parallel/collectives.py``). Head counts passed to the attention
+functions are this rank's.
 """
 
 from __future__ import annotations
@@ -36,16 +48,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from whisper_tpu_torch.parallel.collectives import all_gather_model, all_reduce_model, model_size
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
+
+def linear(p, x: torch.Tensor, tp=None) -> torch.Tensor:
     """x @ w (+ b), in the activation dtype. Mixed float dtypes (a bf16
     attention output against f32 weights) multiply in the promoted dtype,
-    as JAX's einsum does, and the result returns to ``x.dtype``."""
+    as JAX's einsum does, and the result returns to ``x.dtype``. ``tp``: a
+    row-parallel weight, whose partial product is formed from f32 operands
+    (exact products of bf16 or int8 values, summed in f32: no bf16 rounding
+    before the sum) and summed over the model group before the rescale and
+    the bias."""
+    w = p["w_q"] if "w_q" in p else p["w"]
+    dt = torch.float32 if model_size(tp) > 1 else torch.promote_types(x.dtype, w.dtype)
+    y = all_reduce_model(torch.matmul(x.to(dt), w.to(dt)).float(), tp)
     if "w_q" in p:
-        y = torch.matmul(x, p["w_q"].to(x.dtype)).float() * p["w_s"].float()
-    else:
-        dt = torch.promote_types(x.dtype, p["w"].dtype)
-        y = torch.matmul(x.to(dt), p["w"].to(dt)).float()
+        y = y * p["w_s"].float()
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
@@ -77,18 +95,27 @@ def conv1d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return (y + p["b"].float()).to(x.dtype)
 
 
-def embed(tok_emb, tokens: torch.Tensor) -> torch.Tensor:
-    """Token-embedding lookup, float or int8 table ({"q","s"} per-row; f32)."""
+def embed(tok_emb, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token-embedding lookup, float or int8 table ({"q","s"} per-row; f32).
+    ``tp``: the table is this rank's feature slice, and the model group's
+    slices are gathered to the whole width."""
     if isinstance(tok_emb, dict):
-        return tok_emb["q"][tokens].float() * tok_emb["s"][tokens][..., None].float()
-    return tok_emb[tokens]
+        rows = tok_emb["q"][tokens].float() * tok_emb["s"][tokens][..., None].float()
+    else:
+        rows = tok_emb[tokens]
+    return all_gather_model(rows, tp, dim=-1)
 
 
-def unembed(tok_emb, x: torch.Tensor) -> torch.Tensor:
+def unembed(tok_emb, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Logits projection against the (possibly int8) embedding table:
-    [..., d] → [..., V] f32."""
+    [..., d] → [..., V] f32. ``tp``: the table is this rank's feature
+    slice; ``x``'s matching slice is contracted with it and the f32 partial
+    logits are summed over the model group before the int8 row scale."""
     table = tok_emb["q"] if isinstance(tok_emb, dict) else tok_emb
-    logits = torch.matmul(x.float(), table.float().t())
+    w = table.shape[1]
+    if w != x.shape[-1]:
+        x = x[..., tp.model_index * w : (tp.model_index + 1) * w]
+    logits = all_reduce_model(torch.matmul(x.float(), table.float().t()), tp)
     if isinstance(tok_emb, dict):
         logits = logits * tok_emb["s"].float()
     return logits
@@ -149,8 +176,10 @@ def cross_attention_T(
     return out.transpose(1, 2).to(vT.dtype)
 
 
-def mha_self(p, x: torch.Tensor, n_head: int, mask=None, fused: bool = False):
-    """Full (non-cached) multi-head self-attention block body.
+def mha_self(p, x: torch.Tensor, n_head: int, mask=None, fused: bool = False, tp=None):
+    """Full (non-cached) multi-head self-attention block body over
+    ``n_head`` heads (this rank's under ``tp``, where the o projection is
+    row-parallel).
 
     ``fused=True`` with no mask goes through K1 (``ops.attention``): the
     CUDA kernel for a CUDA tensor, its plain version for a CPU tensor."""
@@ -163,8 +192,9 @@ def mha_self(p, x: torch.Tensor, n_head: int, mask=None, fused: bool = False):
         o = fused_self_attention(q, k, v)
     else:
         o = qkv_attention(q, k, v, mask)
-    return linear(p["o"], merge_heads(o))
+    return linear(p["o"], merge_heads(o), tp=tp)
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["fc2"], gelu(linear(p["fc1"], x)))
+def mlp(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """fc1 (column-parallel under ``tp``), GELU, fc2 (row-parallel)."""
+    return linear(p["fc2"], gelu(linear(p["fc1"], x)), tp=tp)

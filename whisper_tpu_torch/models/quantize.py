@@ -120,3 +120,32 @@ def param_bytes(params: Params) -> int:
             yield node
 
     return sum(x.numel() * x.element_size() for x in leaves(params))
+
+
+def quantize_pspecs(pspecs, params_q: Params):
+    """The sharding specs of a quantised tree, from the float tree's
+    (``parallel/sharding.param_pspecs``; a leaf is the axis the model axis
+    cuts, or None): ``w_q`` inherits ``w``'s axis; the per-output scale
+    ``w_s`` is cut only where ``w``'s output axis is (a column-parallel
+    [d_in, d_out] weight), and is whole for a row-parallel weight or a
+    conv; the embedding's per-row scale [V] is replicated, since the
+    feature axis that tensor parallelism cuts is reduced away in it. The
+    counterpart of JAX's ``quantize_pspecs``."""
+
+    def walk(spec_node, q_node):
+        if isinstance(q_node, dict) and "w_q" in q_node:
+            w_axis = spec_node["w"]
+            out_axis = 0 if q_node["w_q"].dim() == 3 else 1  # conv c_out, linear d_out
+            out = {"w_q": w_axis, "w_s": 0 if w_axis == out_axis else None}
+            if "b" in q_node:
+                out["b"] = spec_node["b"]
+            return out
+        if isinstance(q_node, dict) and set(q_node) == {"q", "s"}:
+            return {"q": spec_node, "s": None}
+        if isinstance(q_node, dict):
+            return {k: walk(spec_node[k], v) for k, v in q_node.items()}
+        if isinstance(q_node, list):
+            return [walk(s, v) for s, v in zip(spec_node, q_node)]
+        return spec_node
+
+    return walk(pspecs, params_q)

@@ -1,8 +1,11 @@
-"""Data-parallel runs over ``torch.distributed``, one process per rank.
+"""Data- and tensor-parallel runs over ``torch.distributed``, one process
+per rank.
 
-Counterpart of ``whisper_tpu/parallel``, without its tensor-parallel names
-(``param_pspecs``, ``shard_params``, ``input_pspec``, ``enc_out_pspec``):
-tensor parallelism is not ported yet.
+Counterpart of ``whisper_tpu/parallel``: the (data, model) mesh
+(``mesh.py``), the multi-process runtime (``multihost.py``), the Megatron
+layout of the parameters (``sharding.py``), the collectives the layers
+place themselves where JAX's GSPMD would (``collectives.py``), and the
+dry run over mesh layouts (``dryrun.py``).
 """
 
 from whisper_tpu_torch.parallel.mesh import Mesh, local_mesh_shape, make_mesh
@@ -13,6 +16,10 @@ from whisper_tpu_torch.parallel.multihost import (
     load_files_sharded,
     local_batch,
     uniform_host_rows,
+)
+from whisper_tpu_torch.parallel.sharding import (
+    param_pspecs,
+    shard_params,
 )
 
 __all__ = [
@@ -25,4 +32,6 @@ __all__ = [
     "local_batch",
     "load_files_sharded",
     "allgather_rows",
+    "param_pspecs",
+    "shard_params",
 ]

@@ -1,11 +1,12 @@
-"""One rank of a data-parallel run, as its own process.
+"""One rank of a data- or tensor-parallel run, as its own process.
 
     python -m whisper_tpu_torch.parallel._dist_worker --coordinator HOST:PORT \\
         --num-processes N --process-id I (--paths F1,F2,... | --npy BATCH.npy) \\
-        --out RESULT.json [--model large-v3] [--seed 0 | --params PARAMS.pt] \\
+        --out RESULT.json [--mesh D,M] [--model large-v3] [--seed 0 | --params PARAMS.pt] \\
         [--device cuda] [--dtype bfloat16] [--beam 5] [--quantization int8] \\
         [--kv-cache-dtype float8_e4m3fn] [--fused-step auto[,off]] [--max-new 64] \\
-        [--fallback] [--word-timestamps] [--threads 0]
+        [--language en] [--draft-model dev --k-draft 2] [--fallback] \\
+        [--word-timestamps] [--stages] [--threads 0]
 
 Counterpart of ``whisper_tpu/parallel/_dist_worker.py``. Under ``torchrun
 --nproc-per-node N -m whisper_tpu_torch.parallel._dist_worker ...`` the
@@ -13,7 +14,9 @@ first three options are left out (``parallel.initialize`` reads the
 launcher's environment); ``{rank}`` in ``--out`` becomes the rank.
 
 The rank joins a gloo world of N processes, stands up the engine through
-``create_engine`` with ``mesh_shape=(N, 1)``, and runs either
+``create_engine`` with ``mesh_shape=(D, M)`` (default ``(N, 1)``; a model
+axis M > 1 is tensor parallelism: the rank holds 1/M of the model, see
+``parallel/sharding.py``), and runs either
 ``transcribe_files`` over ``--paths`` (each rank reads only its files; then
 a pass over the first file alone, where every rank but the first holds only
 padding) or ``transcribe_batch`` over the [B, n] float32 array in ``--npy``
@@ -29,9 +32,13 @@ turns on the alignment forward (each rank aligns its rows; not on the
 their length, lengths, text, avg_logprob, no-speech probabilities,
 temperature and compression ratio, words as ``[word, start, end]``) and
 this rank's
-launches of K1, K2, K2′ and K4 over that run go to ``--out`` as JSON, with a
-checksum of the rank's weights. float32 stays float32 on the card (TF32
-off), so that its runs can be held against the CPU's.
+launches of K1–K5 and K2′ over that run, its decode steps and its
+model-group collectives (``parallel/collectives.py``: calls, by stage, host
+seconds) go to ``--out`` as JSON, with a checksum and the bytes of the
+rank's weights and, on the card, its peak memory. ``--stages`` adds, on
+``--npy``, one encode and one decode of the rank's rows timed apart, with
+their own counts. float32 stays float32 on the card (TF32 off), so that
+its runs can be held against the CPU's.
 
 :func:`launch` starts N such ranks on this host and returns their reports.
 """
@@ -91,7 +98,7 @@ def launch(n: int, args: Sequence[str], out_dir: str, timeout: float = 120.0) ->
     if len(procs) != n or any(codes):
         tails = [Path(f).read_text()[-3000:] for f in logs if os.path.exists(f)]
         raise RuntimeError(
-            f"data-parallel workers failed (exit codes {codes}, killed after {timeout} s "
+            f"workers failed (exit codes {codes}, killed after {timeout} s "
             f"if negative): {tails}"
         )
     reports = []
@@ -136,6 +143,7 @@ def main() -> int:
     src.add_argument("--paths", help="comma-separated audio files: transcribe_files")
     src.add_argument("--npy", help="a [B, n] float32 batch: transcribe_batch")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--mesh", default=None, help="DATA,MODEL (default: the world, 1)")
     ap.add_argument("--model", default="dev")
     weights = ap.add_mutually_exclusive_group()
     weights.add_argument("--seed", type=int, default=0)
@@ -147,9 +155,14 @@ def main() -> int:
     ap.add_argument("--kv-cache-dtype", default=None)
     ap.add_argument("--fused-step", default="auto", help="beam step modes, comma-separated")
     ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--language", default=None, help="None: detect on a multilingual model")
+    ap.add_argument("--draft-model", default=None)
+    ap.add_argument("--k-draft", type=int, default=4)
     ap.add_argument("--fallback", action="store_true",
                     help="a retry ladder behind a gate no decode clears")
     ap.add_argument("--word-timestamps", action="store_true")
+    ap.add_argument("--stages", action="store_true",
+                    help="time one encode and one decode apart (--npy only)")
     ap.add_argument("--threads", type=int, default=0, help="torch CPU threads (0: default)")
     args = ap.parse_args()
 
@@ -161,17 +174,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from whisper_tpu_torch.config import EngineConfig
-    from whisper_tpu_torch.decode import beam
+    from whisper_tpu_torch.decode import beam, greedy
     from whisper_tpu_torch.engine import EngineType, create_engine
-    from whisper_tpu_torch.ops import attention, fused_step, gather
+    from whisper_tpu_torch.models.quantize import param_bytes
+    from whisper_tpu_torch.frontend import mel_fused
+    from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend
+    from whisper_tpu_torch.parallel import collectives
     from whisper_tpu_torch.parallel.multihost import initialize, rank, world_size
 
     initialize(args.coordinator, args.num_processes, args.process_id)
+    mesh = tuple(int(n) for n in args.mesh.split(",")) if args.mesh else (world_size(), 1)
     cfg = EngineConfig(
         model=args.model, dtype=args.dtype, beam_size=args.beam,
         quantization=args.quantization, kv_cache_dtype=args.kv_cache_dtype,
-        max_new_tokens=args.max_new, mesh_shape=(world_size(), 1),
-        word_timestamps=args.word_timestamps,
+        max_new_tokens=args.max_new, mesh_shape=mesh, language=args.language,
+        word_timestamps=args.word_timestamps, draft_model=args.draft_model,
+        k_draft=args.k_draft,
     )
     if args.fallback:
         cfg = dataclasses.replace(
@@ -191,33 +209,63 @@ def main() -> int:
         paths = args.paths.split(",")
         crop = engine._resolve_audio_ctx(None)
 
+    def reset():
+        for m in (attention, fused_step, gather, gather_attend, mel_fused):
+            m.launches = 0
+        fused_step.sharded_launches = 0
+        beam.steps = greedy.steps = 0
+        collectives.reset()
+
+    def counts():
+        return {
+            "launches": {
+                "flash_attn_fwd": attention.launches,
+                "permute_append": fused_step.launches,
+                "permute_append_sharded": fused_step.sharded_launches,
+                "permute_rows": gather.launches,
+                "gather_attend": gather_attend.launches,
+                "log_mel_fused": mel_fused.launches,
+            },
+            "steps": beam.steps + greedy.steps,
+            "collectives": {
+                "calls": collectives.calls,
+                "by_stage": dict(collectives.by_stage),
+                "host_ms": collectives.host_seconds * 1e3,
+            },
+        }
+
+    def sync():
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+
     runs = {}
     for mode in args.fused_step.split(","):
         fused = {"true": True, "false": False}.get(mode.lower(), mode)
         eng = type(engine)(
             engine.assets, dataclasses.replace(cfg, fused_step=fused), device=args.device
         )
-        for m in (attention, fused_step, gather):
-            m.launches = 0
-        fused_step.sharded_launches = 0
-        beam.steps = 0  # counts start here: this mode's run
+        sync()
+        reset()  # counts start here: this mode's run
         t0 = time.perf_counter()
         results = eng.transcribe_batch(batch) if args.npy else eng.transcribe_files(paths)
-        if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)
+        sync()
         seconds = time.perf_counter() - t0
-        run = {
-            "results": _rows(results),
-            "launches": {
-                "flash_attn_fwd": attention.launches,
-                "permute_append": fused_step.launches,
-                "permute_append_sharded": fused_step.sharded_launches,
-                "permute_rows": gather.launches,
-            },
-            "steps": beam.steps,  # counts end here
-            "encodes": 1,
-            "seconds": seconds,
-        }
+        run = {"results": _rows(results), **counts(), "encodes": 1, "seconds": seconds}  # counts end here
+        if args.npy and args.stages:
+            # One encode and one decode of this rank's rows, timed apart.
+            host = eng._local(eng._prepare_batch(batch)[0])
+            sync()
+            reset()  # counts start here: the encode
+            t0 = time.perf_counter()
+            enc_out = eng._encode(host, crop)
+            sync()
+            t1 = time.perf_counter()
+            run["encode"] = {"ms": (t1 - t0) * 1e3, **counts()}
+            reset()  # counts end there and start here: the decode
+            t1 = time.perf_counter()
+            eng._decode(enc_out)
+            sync()
+            run["decode"] = {"ms": (time.perf_counter() - t1) * 1e3, **counts()}
         if not args.npy:
             # The one-file pass: every rank but the first holds only padding
             # and must still run and join every gather.
@@ -236,6 +284,12 @@ def main() -> int:
                     if engine.device.type == "cuda" else "cpu"
                 ),
                 "params_checksum": params_checksum(engine.assets.params),
+                "param_bytes": param_bytes(engine.assets.params),
+                "mesh": list(mesh),
+                "max_memory_allocated": (
+                    torch.cuda.max_memory_allocated(engine.device)
+                    if engine.device.type == "cuda" else None
+                ),
                 "audio_ctx": crop,
                 "runs": runs,
             },

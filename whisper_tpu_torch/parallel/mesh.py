@@ -8,18 +8,24 @@ shape plus this rank's place in it and its device. Ranks enumerate the grid
 with ``model`` innermost, as JAX's device list does.
 
 It is not built on ``torch.distributed.DeviceMesh``: its "cuda" device type
-expects NCCL, which refuses two ranks on one card, and the data-parallel
-path needs no sub-groups. Its collectives run on the host, over gloo.
+expects NCCL, which refuses two ranks on one card. The mesh builds its own
+gloo sub-groups, once per shape: one model group per data index (the m
+ranks that hold one model between them, ``parallel/collectives.py``) and
+one data group per model index (the d ranks that split the batch, over
+which ``multihost.allgather_rows`` gathers the results). Its collectives
+run on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from whisper_tpu_torch.parallel.multihost import rank, world_size
 
@@ -32,10 +38,17 @@ class Mesh:
     axis_names: Tuple[str, str]
     data_index: int  # this rank's index along the data axis
     device: torch.device  # the device this rank runs on
+    model_index: int = 0  # this rank's index along the model axis
+    model_group: Any = None  # gloo group of this rank's model peers (None: m == 1)
+    data_group: Any = None  # gloo group of this rank's data peers (None: the world)
 
     @property
     def data_size(self) -> int:
         return self.shape[self.axis_names[0]]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axis_names[1]]
 
     def local_rows(self, batch: np.ndarray) -> np.ndarray:
         """This rank's contiguous share of a batch every rank holds (its row
@@ -88,9 +101,38 @@ def make_mesh(
     world = world_size()
     if d * m != world:
         raise ValueError(f"mesh {(d, m)} needs {d * m} processes, have {world}")
+    model_group, data_group = _groups(d, m)
     return Mesh(
         shape={axis_names[0]: d, axis_names[1]: m},
         axis_names=tuple(axis_names),
         data_index=rank() // m,
         device=rank_device(device),
+        model_index=rank() % m,
+        model_group=model_group,
+        data_group=data_group,
     )
+
+
+_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+
+
+def _groups(d: int, m: int) -> Tuple[Any, Any]:
+    """This rank's (model group, data group) of a (d, m) world, built the
+    first time a mesh of that shape is made. Every rank builds every group,
+    in the same order, as ``new_group`` requires. Without a model axis the
+    data group is the whole world (None)."""
+    if m == 1:
+        return None, None
+    if (d, m) not in _GROUPS:
+        me = rank()
+        mine = [None, None]
+        for i in range(d):  # model groups: one per data index
+            g = dist.new_group([i * m + j for j in range(m)], backend="gloo")
+            if me // m == i:
+                mine[0] = g
+        for j in range(m):  # data groups: one per model index
+            g = dist.new_group([i * m + j for i in range(d)], backend="gloo")
+            if me % m == j:
+                mine[1] = g
+        _GROUPS[(d, m)] = tuple(mine)
+    return _GROUPS[(d, m)]
