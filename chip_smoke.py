@@ -81,8 +81,16 @@ Phases, in order; any failure exits non-zero before the last line:
    number: NCCL refuses two ranks on one card), phase 4's weights and 4
    utterances with a 32-token budget, greedy and then phase 4b's flagship
    (beam 5, int8, fp8 KV, "auto", which is "off" on a model axis > 1).
-   Each rank holds about half of phase 4's parameter bytes (its peak
-   memory printed); launches per rank exactly K1 32 per encode (its 10
+   The ranks restore from an npz of phase 4's weights, written into a
+   temporary directory and removed afterwards (``--checkpoint``: each rank
+   reads only its slice, the flagship's quantised as it is read). Each
+   rank holds about half of phase 4's parameter bytes, its checksum equals
+   ``shard_params`` of this process's tree at its index (the flagship's:
+   phase 4's tree quantised on the host, as the ranks quantise it, and
+   this process's flagship engine runs on that tree), and its
+   ``max_memory_allocated`` is below the whole tree's bytes (printed with
+   the restore's host ms and the peaks measured when each rank drew the
+   whole tree on the card, ``TP_PEAK_FROM_RANDOM_GB``); launches per rank exactly K1 32 per encode (its 10
    local heads), K4 twice per beam step, K2, K2′, K3 and K5 never;
    collectives exactly 64 per encode and 98 per decoder forward (the
    embedding's gather, o, cross o and fc2 of 32 layers, the logits) for
@@ -94,6 +102,22 @@ Phases, in order; any failure exits non-zero before the last line:
    row-parallel product is summed from f32 partials and rounded once,
    where this process rounds twice. An encode and a decode timed
    apart: decode ms per token and host ms in collectives.
+4f. The batch stream at full width: ``Monolith.transcribe_batches`` of 4
+   batches (4, 4, 3 and 4 utterances of 1.5–30 s: "auto" crops 512, 256,
+   1024 and the full window; the batch of 3 pads a silent row) against a
+   loop of ``transcribe_batch`` on the same engine, in turns (loop, stream,
+   stream, loop: the host's load drifts), greedy bf16 (phase 4's, 64
+   tokens) and the flagship (phase 4b's). Tokens and text of every run
+   equal the first loop's row for row; each run's launches exactly K1 32 ×
+   4, K2 32 × the beam steps (the flagship; 0 greedy), K2′, K3, K4 and K5
+   never; every
+   encode's enqueue runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (which must first be seen to raise on an ``.item()``), on an encode
+   stream that is not the decode's. Prints audio-s/s and the decode's
+   device-clock ms per token both ways, ``max_memory_allocated``, and the
+   overlap witness: for each batch i, whether encode(i+1)'s end event lies
+   inside decode(i)'s window, the ms between them, and encode(i+1)'s host
+   ms to enqueue beside its window on the encode stream.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
@@ -124,14 +148,16 @@ Phases, in order; any failure exits non-zero before the last line:
    ``engine/http_server.py``):
 6a. The slot pool: greedy bf16, ``audio_ctx=None``, phase 4's weights,
    64-token budget; ``ContinuousTranscriber(n_slots=8, prefill_batch=2)``,
-   then ``DisaggregatedTranscriber`` with the same arguments, each given 12
-   utterances of 2–30 s in three waves (one result of a wave awaited before
-   the next is submitted). Every future resolves within its timeout and
+   then ``DisaggregatedTranscriber`` with the same arguments, each given 8
+   utterances of 2–19.5 s in two waves (one result of a wave awaited before
+   the next is submitted; two waves, not three, keep the whole run inside
+   its time budget). Every future resolves within its timeout and
    passes ``check_results``; K1 launches exactly 32 × the prefill
    dispatches, K2, K2′, K3, K4 and K5 never. Prints request latency p50/p95
    (submit → result), audio-s/s, occupancy, dispatch efficiency and
    macro-steps, and (information only) token agreement with
-   ``engine.transcribe`` of each utterance.
+   ``engine.transcribe`` of each utterance of the first wave (the first
+   wave only, for the run's time budget).
 6b. ``AsyncTranscriber(max_batch=4)`` over phase 4b's flagship engine, 8
    utterances from 4 threads: K1 32 × flushes, K2 32 × beam steps, K3, K4,
    K5 and K2′ never; latency p50/p95 and audio-s/s.
@@ -144,7 +170,8 @@ Phases, in order; any failure exits non-zero before the last line:
    weights; every launch count set to 0 just before each sub-phase and
    checked exactly just after it:
 7a. Greedy bf16 with the default ladder (0.0, 0.2, …, 1.0) and the default
-   gates on phase 4's 4 utterances, 64-token budget: every temperature in
+   gates on phase 4's 4 utterances, a 32-token budget (for the run's time
+   budget; the ladder's six runs kept): every temperature in
    the schedule, the runs (one encode each) matching the kept temperatures,
    rows retried per attempt printed; K1 32 × the encodes, K2, K2′, K3, K4,
    K5 never. Then the ladder with both gates off: one run through the
@@ -164,9 +191,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 8. Speculative decoding at full width (``decode/speculative.py``), every
    launch count set to 0 just before each run and checked exactly after:
-8a. large-v3 in float32 (TF32 off), phase 4's batch, 64-token budget:
+8a. large-v3 in float32 (TF32 off), phase 4's batch, a 32-token budget
+   (for the run's time budget):
    greedy, then three drafts at k = 4: a self-draft (the target's own
-   weights: every draft accepted, ⌈63 / 5⌉ rounds when a row runs to the
+   weights: every draft accepted, ⌈31 / 5⌉ rounds when a row runs to the
    budget), a random ``distil-large-v3`` (shares the target's encoder
    output: K1 32) and a random ``tiny`` (its own mel and encoder: K1 32 +
    4). Tokens must equal greedy's exactly; rounds and acceptance printed,
@@ -210,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -1764,101 +1793,321 @@ def _language_gap(torch, engine, host_row: np.ndarray, audio_ctx) -> float:
 def phase_tensor_parallel(torch, main_engine, beam_engine) -> dict:
     """The tensor-parallel path (docstring, phase 4e). Returns K1's and
     K4's launches per rank and the run's numbers."""
-    from whisper_tpu_torch.decode import beam as beam_search
-    from whisper_tpu_torch.models.quantize import param_bytes
-    from whisper_tpu_torch.parallel._dist_worker import launch
+    from whisper_tpu_torch.utils.checkpoint import save_params
 
-    utts, batch, audio_s = main_path_batch()
+    _, batch, audio_s = main_path_batch()
+    out = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        npz = os.path.join(ckdir, "large-v3.npz")
+        t0 = time.perf_counter()
+        save_params(npz, main_engine.assets.params, main_engine.dims)
+        log(f"  phase 4's weights written to an npz in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(npz) / 1e9:.3f} GB); each rank restores its slice from it")
+        for label, engine in (("greedy", main_engine), ("flagship", beam_engine)):
+            out[label] = _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s)
+    return out
+
+
+# Each rank's peak memory when it drew the whole tree on the card and cut
+# it (``--seed`` in place of ``--checkpoint``; H100 80GB HBM3, 700.00 W):
+# greedy, flagship.
+TP_PEAK_FROM_RANDOM_GB = {"greedy": 4.679, "flagship": 5.456}
+
+
+def _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s) -> dict:
+    """One leg of phase 4e (greedy or the flagship): two ranks restore
+    their slices of ``npz`` (phase 4's weights) and run; checks and
+    numbers as the docstring says."""
+    from whisper_tpu_torch.decode import beam as beam_search
+    from whisper_tpu_torch.models.params import to_device
+    from whisper_tpu_torch.models.quantize import param_bytes, quantize_params
+    from whisper_tpu_torch.parallel._dist_worker import launch, params_checksum
+    from whisper_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(engine.config, max_new_tokens=TP_BUDGET)
+    beam_run = cfg.beam_size > 1
+    flags = ["--beam", str(cfg.beam_size), "--fused-step", "auto"]
+    if cfg.quantization:
+        flags += ["--quantization", cfg.quantization, "--kv-cache-dtype", cfg.kv_cache_dtype]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "batch.npy"), batch)
+        reports = launch(2, [
+            "--npy", os.path.join(tmp, "batch.npy"), "--model", cfg.model, "--checkpoint", npz,
+            "--device", "cuda", "--dtype", cfg.dtype, "--mesh", "1,2",
+            "--max-new", str(TP_BUDGET), "--stages", *flags,
+        ], tmp, timeout=600)
+    launch_s = time.perf_counter() - t0
+    assets = engine.assets
+    if cfg.quantization:
+        # The ranks quantise phase 4's tree on the host as they read it: the
+        # reference is that tree quantised whole on the host (the card's
+        # quantize_params divides by a host scalar through its reciprocal,
+        # ROADMAP Queue 3), then cut, and this process's engine runs on it.
+        assets = dataclasses.replace(assets, params=to_device(
+            quantize_params(to_device(main_engine.assets.params, "cpu")), engine.device))
+    ref = assets.params
+    whole = param_bytes(ref)
+    tree_bytes = param_bytes(main_engine.assets.params)  # the whole tree the npz holds
+    for rep in reports:
+        run = rep["runs"]["auto"]
+        share = rep["param_bytes"] / whole
+        mesh = types.SimpleNamespace(model_index=rep["rank"], model_size=2)
+        want = params_checksum(shard_params(ref, mesh, engine.dims))
+        log(f"  {label}, rank {rep['rank']} of mesh {tuple(rep['mesh'])} on {rep['device']}: "
+            f"{rep['param_bytes'] / 1e9:.3f} GB of weights ({share:.4f} of phase 4's "
+            f"{whole / 1e9:.3f} GB), restored from the npz in {rep['restore_ms']:.1f} host ms; "
+            f"max_memory_allocated {rep['max_memory_allocated'] / 1e9:.3f} GB (the whole tree "
+            f"{tree_bytes / 1e9:.3f} GB; ranks that drew it whole on the card: "
+            f"{TP_PEAK_FROM_RANDOM_GB[label]:.3f} GB); checksum {rep['params_checksum']} "
+            f"(the cut of this process's tree: {want}); "
+            f"run {run['seconds'] * 1e3:.1f} ms → {audio_s / run['seconds']:.2f} audio-s/s "
+            f"(two ranks on one card: not a scaling number); launches {run['launches']}; "
+            f"collectives {run['collectives']['by_stage']}")
+        if not 0.48 <= share <= 0.52:
+            fail(f"4e {label}, rank {rep['rank']}: holds {share:.4f} of the weights, expected about half")
+        if rep["params_checksum"] != want:
+            fail(f"4e {label}, rank {rep['rank']}: restored weights {rep['params_checksum']} are not "
+                 f"shard_params of this process's tree at its index ({want})")
+        if rep["max_memory_allocated"] >= tree_bytes:
+            fail(f"4e {label}, rank {rep['rank']}: peak memory {rep['max_memory_allocated']} is not "
+                 f"below the whole tree's {tree_bytes} bytes")
+        _tp_expect(label, rep, run, beam_run, encodes=1, decodes=1)
+        _tp_expect(f"{label} encode", rep, run["encode"], beam_run, encodes=1, decodes=0)
+        _tp_expect(f"{label} decode", rep, run["decode"], beam_run, encodes=0, decodes=1)
+        dec = run["decode"]
+        steps = max(dec["steps"], 1)
+        log(f"    encode {run['encode']['ms']:.1f} ms ({run['encode']['collectives']['host_ms']:.1f} host ms "
+            f"in its 64 collectives); decode {dec['ms']:.1f} ms over {dec['steps']} steps = "
+            f"{dec['ms'] / steps:.2f} ms/token, {dec['collectives']['host_ms']:.1f} host ms in its "
+            f"{dec['collectives']['calls']} collectives ({dec['collectives']['host_ms'] / steps:.2f} per step)")
+    results = reports[0]["runs"]["auto"]["results"]
+    if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
+        fail(f"4e {label}: the ranks returned different result lists")
+    # This process's engine on the same weights at the same budget (its
+    # beam rounds traced, for the margin of a flip).
+    single = type(engine)(assets, cfg, device=engine.device)
+    with _beam_trace(beam_search) as rounds:
+        ref = single.transcribe_batch(batch)
+    flips = []
+    p_len = len(single._prompt)
+    for i, (g, r) in enumerate(zip(results, ref)):
+        want = r.tokens[: r.length].tolist()
+        if g["tokens"] == want:
+            continue
+        p = next((j for j, (a, b) in enumerate(zip(g["tokens"], want)) if a != b),
+                 min(len(g["tokens"]), len(want)))
+        if p == single._sot_index + 1:  # the detected language
+            gap = _language_gap(torch, single, batch[i], reports[0]["audio_ctx"])
+            how = "language detection's top-2 gap"
+        elif beam_run:  # the beam's own margin: the K-th kept candidate against the row's
+            gap, rnd = _beam_flip_gap(rounds, i, cfg.beam_size, g["tokens"][p_len:], f"4e {label}")
+            how = f"beam margin at round {rnd}"
+        else:
+            gap, how = _top2_gap(torch, single, batch[i], r.tokens, p), "top-2 gap"
+        log(f"    {label} row {i}: leaves the single process's tokens at position {p} "
+            f"({want[p] if p < len(want) else None} → "
+            f"{g['tokens'][p] if p < len(g['tokens']) else None}), its {how} {gap:.4f}")
+        if gap >= BF16_NEAR_TIE:
+            fail(f"4e {label}: row {i} differs at a pick {gap:.4f} from a tie (rule: < {BF16_NEAR_TIE})")
+        flips.append({"row": i, "position": p, "gap": gap})
+    with _row_parallel_f32(torch, single.assets.params) as hits:
+        same = single.transcribe_batch(batch)
+    alike = [i for i, (g, r) in enumerate(zip(results, same)) if g["tokens"] == r.tokens[: r.length].tolist()]
+    log(f"  information: {label}: rows {alike} of {len(results)} equal this process run with the ranks' "
+        f"arithmetic ({len(hits)} row-parallel products from f32 operands, rounded once)")
+    log(f"  {label}: both ranks return the same {len(results)} results; "
+        f"{len(results) - len(flips)} of {len(results)} rows equal this process's engine at "
+        f"{TP_BUDGET} tokens, {len(flips)} near-tie flips; launch {launch_s:.1f} s")
+    return {
+        "k1_per_rank": [rep["runs"]["auto"]["launches"]["flash_attn_fwd"] for rep in reports],
+        "k4_per_rank": [rep["runs"]["auto"]["launches"]["permute_rows"] for rep in reports],
+        "steps": reports[0]["runs"]["auto"]["steps"],
+        "decode_ms_per_token": reports[0]["runs"]["auto"]["decode"]["ms"]
+        / max(reports[0]["runs"]["auto"]["decode"]["steps"], 1),
+        "decode_collective_host_ms": reports[0]["runs"]["auto"]["decode"]["collectives"]["host_ms"],
+        "encode_ms": reports[0]["runs"]["auto"]["encode"]["ms"],
+        "encode_collective_host_ms": reports[0]["runs"]["auto"]["encode"]["collectives"]["host_ms"],
+        "param_bytes_per_rank": [rep["param_bytes"] for rep in reports],
+        "max_memory_allocated": [rep["max_memory_allocated"] for rep in reports],
+        "flips": flips,
+        "rows_equal_to_the_ranks_arithmetic": alike,
+        "restore_ms": [rep["restore_ms"] for rep in reports],
+    }
+
+
+# Phase 4f's batches: seconds of each utterance. Content ends at 9, 4, 18
+# and 30 s: "auto" crops 512, 256, 1024 and the full window; the batch of 3
+# rows pads to the bucket of 4 with a row of silence.
+STREAM_LENGTHS_S = ((3.0, 5.0, 7.0, 9.0), (1.5, 2.0, 3.0, 4.0), (10.0, 14.0, 18.0), (12.0, 20.0, 25.0, 30.0))
+
+
+def stream_batches():
+    """Phase 4f's 4 batches of synthetic utterances ([rows, 480000] f32)
+    and their seconds of audio."""
+    batches, seed = [], 0
+    for lengths in STREAM_LENGTHS_S:
+        batch = np.zeros((len(lengths), 480_000), np.float32)
+        for i, sec in enumerate(lengths):
+            u = synthetic_utterance(sec, seed)
+            batch[i, : len(u)] = u
+            seed += 1
+        batches.append(batch)
+    return batches, float(sum(map(sum, STREAM_LENGTHS_S)))
+
+
+@contextlib.contextmanager
+def _stream_witness(torch, engine, beam):
+    """While the ``with`` lasts, ``engine``'s batch stream is watched: each
+    encode's enqueue runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (a host sync in it raises), the encode stream must not be the decode
+    stream, events are recorded around each encode's enqueue (on the
+    encode stream; with its host ms) and at the start and end of each
+    decode (on the current stream), with the decode's steps. Yields the record, which the loop of
+    ``transcribe_batch`` fills too (its decodes only)."""
+    rec = {"encode": [], "decode": [], "streams": set()}
+    encode, decode = engine._stream_encode, engine._decode
+
+    def stream_encode(stream, job):
+        if stream.encode.cuda_stream == stream.decode.cuda_stream or \
+                stream.decode.cuda_stream != torch.cuda.current_stream().cuda_stream:
+            fail("4f: the encode stream is the decode stream, or the decode is not on the current stream")
+        rec["streams"].add((stream.copy.cuda_stream, stream.encode.cuda_stream, stream.decode.cuda_stream))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream.encode)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            job = encode(stream, job)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record(stream.encode)
+        rec["encode"].append((start, end, host_ms))
+        return job
+
+    from whisper_tpu_torch.decode import greedy
+
+    def timed_decode(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        steps = beam.steps + greedy.steps
+        start.record()
+        out = decode(*a, **kw)
+        end.record()
+        rec["decode"].append((start, end, beam.steps + greedy.steps - steps))
+        return out
+
+    engine._stream_encode, engine._decode = stream_encode, timed_decode
+    try:
+        yield rec
+    finally:
+        del engine._stream_encode, engine._decode
+
+
+def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
+    """The batch stream at full width (docstring, phase 4f). Returns, per
+    config, the stream's launches and its numbers."""
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    batches, audio_s = stream_batches()
+    # The debug mode must see a host sync: a witness that the check can fail.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device="cuda").item()
+        fail("4f: set_sync_debug_mode('error') let a host sync (.item()) through")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    crops = [main_engine._resolve_audio_ctx(main_engine._prepare_batch(b)[0]) for b in batches]
+    log(f"  {len(batches)} batches of {[b.shape[0] for b in batches]} rows, {audio_s:.1f} s of audio, "
+        f"\"auto\" crops {crops}")
     out = {}
     for label, engine in (("greedy", main_engine), ("flagship", beam_engine)):
-        cfg = dataclasses.replace(engine.config, max_new_tokens=TP_BUDGET)
-        beam_run = cfg.beam_size > 1
-        flags = ["--beam", str(cfg.beam_size), "--fused-step", "auto"]
-        if cfg.quantization:
-            flags += ["--quantization", cfg.quantization, "--kv-cache-dtype", cfg.kv_cache_dtype]
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            np.save(os.path.join(tmp, "batch.npy"), batch)
-            reports = launch(2, [
-                "--npy", os.path.join(tmp, "batch.npy"), "--model", cfg.model, "--seed", "0",
-                "--device", "cuda", "--dtype", cfg.dtype, "--mesh", "1,2",
-                "--max-new", str(TP_BUDGET), "--stages", *flags,
-            ], tmp, timeout=600)
-        launch_s = time.perf_counter() - t0
-        whole = param_bytes(engine.assets.params)
-        for rep in reports:
-            run = rep["runs"]["auto"]
-            share = rep["param_bytes"] / whole
-            log(f"  {label}, rank {rep['rank']} of mesh {tuple(rep['mesh'])} on {rep['device']}: "
-                f"{rep['param_bytes'] / 1e9:.3f} GB of weights ({share:.4f} of phase 4's "
-                f"{whole / 1e9:.3f} GB), max_memory_allocated {rep['max_memory_allocated'] / 1e9:.3f} GB; "
-                f"run {run['seconds'] * 1e3:.1f} ms → {audio_s / run['seconds']:.2f} audio-s/s "
-                f"(two ranks on one card: not a scaling number); launches {run['launches']}; "
-                f"collectives {run['collectives']['by_stage']}")
-            if not 0.48 <= share <= 0.52:
-                fail(f"4e {label}, rank {rep['rank']}: holds {share:.4f} of the weights, expected about half")
-            _tp_expect(label, rep, run, beam_run, encodes=1, decodes=1)
-            _tp_expect(f"{label} encode", rep, run["encode"], beam_run, encodes=1, decodes=0)
-            _tp_expect(f"{label} decode", rep, run["decode"], beam_run, encodes=0, decodes=1)
-            dec = run["decode"]
-            steps = max(dec["steps"], 1)
-            log(f"    encode {run['encode']['ms']:.1f} ms ({run['encode']['collectives']['host_ms']:.1f} host ms "
-                f"in its 64 collectives); decode {dec['ms']:.1f} ms over {dec['steps']} steps = "
-                f"{dec['ms'] / steps:.2f} ms/token, {dec['collectives']['host_ms']:.1f} host ms in its "
-                f"{dec['collectives']['calls']} collectives ({dec['collectives']['host_ms'] / steps:.2f} per step)")
-        results = reports[0]["runs"]["auto"]["results"]
-        if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
-            fail(f"4e {label}: the ranks returned different result lists")
-        # This process's engine on the same weights at the same budget (its
-        # beam rounds traced, for the margin of a flip).
-        single = type(engine)(engine.assets, cfg, device=engine.device)
-        with _beam_trace(beam_search) as rounds:
-            ref = single.transcribe_batch(batch)
-        flips = []
-        p_len = len(single._prompt)
-        for i, (g, r) in enumerate(zip(results, ref)):
-            want = r.tokens[: r.length].tolist()
-            if g["tokens"] == want:
+        runs = [_stream_run(torch, kernels, beam, engine, batches, way) for way in STREAM_ORDER]
+        for r in runs:
+            log(f"  {label} {r['way']}: {r['wall'] * 1e3:.1f} ms → {audio_s / r['wall']:.2f} audio-s/s; decode "
+                f"{r['decode_ms']:.1f} device-clock ms over {r['steps']} steps = {r['decode_ms_per_token']:.2f} "
+                f"ms/token; max_memory_allocated {r['peak'] / 1e9:.3f} GB; launches {r['launches']}")
+        first = runs[0]
+        want = {"K1": LARGE_V3_ENC_LAYERS * len(batches),
+                "K2": LARGE_V3_DEC_LAYERS * first["beam_steps"] if engine.config.beam_size > 1 else 0,
+                "K2′": 0, "K3": 0, "K4": 0, "K5": 0}
+        for r in runs:
+            if r["launches"] != want or (engine.config.beam_size > 1 and r["beam_steps"] == 0):
+                fail(f"4f {label} {r['way']}: launched {r['launches']}, expected {want}")
+            for i, (a_list, b_list) in enumerate(zip(r["results"], first["results"])):
+                if len(a_list) != len(b_list) or len(a_list) != batches[i].shape[0]:
+                    fail(f"4f {label} {r['way']}: batch {i} gave {len(a_list)} results, the loop {len(b_list)}")
+                check_results(a_list, engine, engine.dims.n_vocab)
+                for j, (a, b) in enumerate(zip(a_list, b_list)):
+                    if not np.array_equal(a.tokens, b.tokens) or a.length != b.length or a.text != b.text:
+                        fail(f"4f {label} {r['way']}: batch {i} row {j}: tokens {a.tokens[:a.length].tolist()} "
+                             f"differ from the loop's {b.tokens[:b.length].tolist()}")
+        overlap = []
+        for r in runs:
+            if r["way"] != "stream":
                 continue
-            p = next((j for j, (a, b) in enumerate(zip(g["tokens"], want)) if a != b),
-                     min(len(g["tokens"]), len(want)))
-            if p == single._sot_index + 1:  # the detected language
-                gap = _language_gap(torch, single, batch[i], reports[0]["audio_ctx"])
-                how = "language detection's top-2 gap"
-            elif beam_run:  # the beam's own margin: the K-th kept candidate against the row's
-                gap, rnd = _beam_flip_gap(rounds, i, cfg.beam_size, g["tokens"][p_len:], f"4e {label}")
-                how = f"beam margin at round {rnd}"
-            else:
-                gap, how = _top2_gap(torch, single, batch[i], r.tokens, p), "top-2 gap"
-            log(f"    {label} row {i}: leaves the single process's tokens at position {p} "
-                f"({want[p] if p < len(want) else None} → "
-                f"{g['tokens'][p] if p < len(g['tokens']) else None}), its {how} {gap:.4f}")
-            if gap >= BF16_NEAR_TIE:
-                fail(f"4e {label}: row {i} differs at a pick {gap:.4f} from a tie (rule: < {BF16_NEAR_TIE})")
-            flips.append({"row": i, "position": p, "gap": gap})
-        with _row_parallel_f32(torch, single.assets.params) as hits:
-            same = single.transcribe_batch(batch)
-        alike = [i for i, (g, r) in enumerate(zip(results, same)) if g["tokens"] == r.tokens[: r.length].tolist()]
-        log(f"  information: {label}: rows {alike} of {len(results)} equal this process run with the ranks' "
-            f"arithmetic ({len(hits)} row-parallel products from f32 operands, rounded once)")
-        log(f"  {label}: both ranks return the same {len(results)} results; "
-            f"{len(results) - len(flips)} of {len(results)} rows equal this process's engine at "
-            f"{TP_BUDGET} tokens, {len(flips)} near-tie flips; launch {launch_s:.1f} s")
+            rec = r["rec"]
+            if len(rec["encode"]) != len(batches) or len(rec["streams"]) != 1:
+                fail(f"4f {label}: {len(rec['encode'])} encodes on {len(rec['streams'])} stream sets")
+            for i in range(len(batches) - 1):
+                start, end, _ = rec["decode"][i]
+                enc_start, enc, host_ms = rec["encode"][i + 1]
+                after_start, before_end = start.elapsed_time(enc), enc.elapsed_time(end)
+                inside = after_start > 0 and before_end >= 0
+                overlap.append({"batch": i, "inside": inside, "ms_after_decode_start": after_start,
+                                "ms_before_decode_end": before_end, "encode_host_ms": host_ms,
+                                "encode_device_window_ms": enc_start.elapsed_time(enc)})
+                log(f"    overlap: encode({i + 1}) (enqueued in {host_ms:.1f} host ms, "
+                    f"{enc_start.elapsed_time(enc):.1f} ms on the encode stream) ended {after_start:.2f} ms "
+                    f"after decode({i}) started and {before_end:.2f} ms before it ended: "
+                    f"{'inside' if inside else 'outside'} its window")
+        rate = {way: [audio_s / r["wall"] for r in runs if r["way"] == way] for way in ("loop", "stream")}
+        log(f"  {label}: tokens and text of every row of every run equal the first loop's; the stream "
+            f"{statistics.mean(rate['stream']) / statistics.mean(rate['loop']):.3f}× the loop's mean "
+            f"audio-s/s (runs in the order {' '.join(STREAM_ORDER)}); no host sync in "
+            f"{STREAM_ORDER.count('stream') * len(batches)} encode enqueues")
         out[label] = {
-            "k1_per_rank": [rep["runs"]["auto"]["launches"]["flash_attn_fwd"] for rep in reports],
-            "k4_per_rank": [rep["runs"]["auto"]["launches"]["permute_rows"] for rep in reports],
-            "steps": reports[0]["runs"]["auto"]["steps"],
-            "decode_ms_per_token": reports[0]["runs"]["auto"]["decode"]["ms"]
-            / max(reports[0]["runs"]["auto"]["decode"]["steps"], 1),
-            "decode_collective_host_ms": reports[0]["runs"]["auto"]["decode"]["collectives"]["host_ms"],
-            "encode_ms": reports[0]["runs"]["auto"]["encode"]["ms"],
-            "encode_collective_host_ms": reports[0]["runs"]["auto"]["encode"]["collectives"]["host_ms"],
-            "param_bytes_per_rank": [rep["param_bytes"] for rep in reports],
-            "max_memory_allocated": [rep["max_memory_allocated"] for rep in reports],
-            "flips": flips,
-            "rows_equal_to_the_ranks_arithmetic": alike,
+            "launches": first["launches"],
+            "audio_s_per_s": rate,
+            "decode_ms_per_token": {way: [r["decode_ms_per_token"] for r in runs if r["way"] == way]
+                                    for way in ("loop", "stream")},
+            "max_memory_allocated": {way: max(r["peak"] for r in runs if r["way"] == way)
+                                     for way in ("loop", "stream")},
+            "overlap": overlap,
         }
     return out
+
+
+STREAM_ORDER = ("loop", "stream", "stream", "loop")  # in turns: the host's load drifts
+
+
+def _stream_run(torch, kernels, beam, engine, batches, way) -> dict:
+    """One run of phase 4f's batches, ``transcribe_batches`` ("stream") or a
+    loop of ``transcribe_batch`` ("loop"), watched by
+    :func:`_stream_witness`, with its launches and peak memory."""
+    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    with _stream_witness(torch, engine, beam) as rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)  # counts start here: this run
+        beam.steps = 0
+        t0 = time.perf_counter()
+        if way == "stream":
+            results = engine.transcribe_batches(batches)
+        else:
+            results = [engine.transcribe_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": attention.launches, "K2": fused_step.launches,
+                    "K2′": fused_step.sharded_launches, "K3": gather_attend.launches,
+                    "K4": gather.launches, "K5": mel_fused.launches}
+        beam_steps = beam.steps  # counts end here
+    decode_ms = sum(s.elapsed_time(e) for s, e, _ in rec["decode"])
+    steps = sum(n for _, _, n in rec["decode"])
+    return dict(way=way, results=results, wall=wall, launches=launches, beam_steps=beam_steps, rec=rec,
+                decode_ms=decode_ms, steps=steps, decode_ms_per_token=decode_ms / max(steps, 1),
+                peak=torch.cuda.max_memory_allocated())
 
 
 SERVING_TIMEOUT_S = 600  # per future: a hang fails the run, it does not stall it
@@ -2159,14 +2408,14 @@ def _latency_line(lat, audio_s, wall) -> tuple:
 
 
 def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
-    """Phase 6a for one slot-pool class: the 12 utterances in three waves,
+    """Phase 6a for one slot-pool class: the utterances in waves of 4,
     launches counted over the run."""
     attention, fused_step, gather, gather_attend, mel_fused = kernels
     pool = cls(engine, n_slots=8, prefill_batch=2)
     pool.warmup()
     reset_counts(*kernels)  # counts start here: the slot pool's run
     with pool:
-        results, lat, wall = _drive(pool, utts, [list(range(i, i + 4)) for i in (0, 4, 8)])
+        results, lat, wall = _drive(pool, utts, [list(range(i, i + 4)) for i in range(0, len(utts), 4)])
     torch.cuda.synchronize()
     k1 = attention.launches
     others = (fused_step.launches, fused_step.sharded_launches, gather_attend.launches, gather.launches,
@@ -2195,14 +2444,14 @@ def phase_serving(torch, kernels, EngineConfig, EngineType, create_engine) -> tu
 
     cfg = EngineConfig(model="large-v3", max_new_tokens=64, audio_ctx=None)
     engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")  # phase 4's weights
-    utts = serving_utterances()
+    utts = serving_utterances()[:8]  # two waves: the run's time budget
     records = [phase_slot_pool(torch, kernels, engine, utts, cls)
                for cls in (ContinuousTranscriber, DisaggregatedTranscriber)]
-    single = [engine.transcribe(u) for u in utts]
+    single = [engine.transcribe(u) for u in utts[:4]]  # the first wave: the run's time budget
     for rec in records:
         agree = sum(_same_tokens(a, b) for a, b in zip(rec.pop("results"), single))
-        log(f"  information: {rec['class']}: {agree} of {len(utts)} utterances token-equal to "
-            f"engine.transcribe (bf16 at other batch shapes may flip near ties)")
+        log(f"  information: {rec['class']}: {agree} of the first wave's {len(single)} utterances "
+            f"token-equal to engine.transcribe (bf16 at other batch shapes may flip near ties)")
         rec["agree_with_transcribe"] = agree
     return engine, records
 
@@ -2357,6 +2606,9 @@ def _timed(torch, kernels, beam, fn) -> tuple:
     return out, wall, _counts(kernels, beam)  # counts end here
 
 
+LADDER_BUDGET = 32  # phases 7a and 7b: tokens per run of the ladder
+
+
 def phase_ladder(torch, kernels, beam, engine, label) -> dict:
     """Phases 7a and 7b (docstring): ``engine``'s config with the default
     ladder and gates on phase 4's batch. K1 once per layer of every
@@ -2365,7 +2617,8 @@ def phase_ladder(torch, kernels, beam, engine, label) -> dict:
     from whisper_tpu_torch.decode.fallback import DEFAULT_TEMPERATURES
 
     _, batch, audio_s = main_path_batch()
-    eng = _engine_with(engine, fallback_temperatures=DEFAULT_TEMPERATURES[1:])
+    eng = _engine_with(engine, fallback_temperatures=DEFAULT_TEMPERATURES[1:],
+                       max_new_tokens=LADDER_BUDGET)
     with _Spy(eng, "_run") as spy:
         results, wall, n = _timed(torch, kernels, beam, lambda: eng.transcribe_batch(batch))
     check_results(results, eng, eng.dims.n_vocab)
@@ -2588,8 +2841,8 @@ def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record = {}
-    base = create_engine(EngineType.MONOLITH, EngineConfig(model="large-v3", dtype="float32", max_new_tokens=64), seed=0,
-                         device="cuda")
+    base = create_engine(EngineType.MONOLITH, EngineConfig(model="large-v3", dtype="float32",
+                                                           max_new_tokens=SPEC_F32_BUDGET), seed=0, device="cuda")
     greedy, wall, n = _timed(torch, kernels, beam, lambda: base.transcribe_batch(batch))
     check_results(greedy, base, base.dims.n_vocab)
     _expect("8a greedy", n, {"K1": LARGE_V3_ENC_LAYERS})
@@ -2656,6 +2909,9 @@ def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict
     record["8b"] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": n,
                     "rows_equal_phase4": sum(same), "top2_gaps": gaps, **st}
     return record
+
+
+SPEC_F32_BUDGET = 32  # phase 8a's tokens per row
 
 
 CLI_RUNNER = (
@@ -2951,11 +3207,22 @@ def main() -> None:
     per_rank = phase_data_parallel(torch, beam_engine, beam_results)
     k2s["launches"], k2s["launches_per_rank"] = sum(per_rank), per_rank
 
-    log("[4e] tensor-parallel path: large-v3 bf16, mesh_shape=(1, 2), two ranks on one card over gloo")
+    t4e = time.perf_counter()
+    log("[4e] tensor-parallel path: large-v3 bf16, mesh_shape=(1, 2), two ranks on one card over gloo, "
+        "each restored from an npz of phase 4's weights")
     tp = phase_tensor_parallel(torch, main_engine, beam_engine)
     k1["tp_launches_per_rank"] = {label: rec["k1_per_rank"] for label, rec in tp.items()}
     k4["tp_launches_per_rank"] = {label: rec["k4_per_rank"] for label, rec in tp.items()}
     k1["tp_local_heads"]["launches_per_rank"] = k1["tp_launches_per_rank"]
+    log(f"  phase 4e took {time.perf_counter() - t4e:.1f} s")
+
+    t4f = time.perf_counter()
+    log("[4f] the batch stream: transcribe_batches against a loop of transcribe_batch, large-v3, "
+        "greedy bf16 and the flagship")
+    stream = phase_batch_stream(torch, kernels, beam, main_engine, beam_engine)
+    for name, rec in zip(("K1", "K2", "K2′", "K3", "K4", "K5"), (k1, k2, k2s, k3, k4, k5)):
+        rec["stream_launches"] = {label: r["launches"][name] for label, r in stream.items()}
+    log(f"batch stream record: {json.dumps(stream)}; phase 4f took {time.perf_counter() - t4f:.1f} s")
 
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)

@@ -20,8 +20,9 @@ One flag more than JAX's: ``--device`` (default ``cuda``; ``cpu`` runs on
 the CPU). ``--mesh d,m`` with d · m > 1 runs one rank of a world of d · m
 processes and needs a process group of that size (``torchrun
 --nproc-per-node`` d · m), as JAX's ``--mesh`` does: a data axis splits
-the batch, a model axis > 1 is tensor parallelism. Usage errors exit 2
-with a message. Without ``--checkpoint`` the weights are
+the batch, a model axis > 1 is tensor parallelism, where each rank reads
+only its slice of an npz ``--checkpoint`` (``utils/checkpoint.load_params``).
+Usage errors exit 2 with a message. Without ``--checkpoint`` the weights are
 random from a seed.
 """
 
@@ -76,12 +77,22 @@ def _engine_from_args(args):
     from whisper_tpu_torch.config import MODEL_DIMS, EngineConfig
     from whisper_tpu_torch.engine import EngineType, create_engine
 
-    params = None
+    params, shard = None, None
     model = args.model
+    mesh_shape = _mesh_shape(args.mesh)
     if args.checkpoint:
         from whisper_tpu_torch.models.convert import load_checkpoint
 
-        params, dims = load_checkpoint(args.checkpoint)
+        if mesh_shape[1] > 1 and args.checkpoint.endswith(".npz"):
+            # A tensor-parallel rank reads only its slice of the file.
+            from whisper_tpu_torch.parallel.mesh import make_mesh
+            from whisper_tpu_torch.utils.checkpoint import load_params
+
+            tp = make_mesh(mesh_shape, device=args.device)
+            params, dims = load_params(args.checkpoint, tp, quantization=args.quantize)
+            shard = (tp.model_index, tp.model_size)
+        else:
+            params, dims = load_checkpoint(args.checkpoint)
         inferred = next((k for k, v in MODEL_DIMS.items() if v == dims), None)
         if model is None:
             if inferred is None:
@@ -93,7 +104,6 @@ def _engine_from_args(args):
                 f"{model} was requested"
             )
     model = model or "tiny"
-    mesh_shape = _mesh_shape(args.mesh)
 
     fallback = None
     if getattr(args, "fallback", False):
@@ -162,7 +172,7 @@ def _engine_from_args(args):
             _usage_error(f"draft checkpoint is not {config.draft_model}-shaped")
     return create_engine(
         engine_type, config, params=params, vocab_bin=args.vocab,
-        device=args.device, draft_params=draft_params,
+        device=args.device, draft_params=draft_params, shard=shard,
     )
 
 
@@ -290,7 +300,7 @@ def _cmd_info(args) -> int:
     else:
         from whisper_tpu_torch.config import MODEL_DIMS
         from whisper_tpu_torch.models.convert import load_checkpoint
-        from whisper_tpu_torch.models.params import leaves
+        from whisper_tpu_torch.models.params import count_params, leaves
         from whisper_tpu_torch.models.quantize import is_quantized, param_bytes
 
         params, dims = load_checkpoint(path)
@@ -307,7 +317,7 @@ def _cmd_info(args) -> int:
                     "n_audio_ctx", "n_text_ctx",
                 )
             },
-            n_params=int(sum(x.numel() for x in tensors)),
+            n_params=count_params(params),
             bytes=int(param_bytes(params)),
             dtypes=sorted({str(x.dtype).removeprefix("torch.") for x in tensors}),
             quantized=bool(is_quantized(params)),

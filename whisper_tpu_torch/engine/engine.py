@@ -38,7 +38,10 @@ On top of that one run, as in JAX:
   samples and crop in ``Monolith`` (``EncDec`` refuses it). Its results
   carry no ``avg_logprob``; ``transcribe_sequential`` and the slot pools
   decode without the draft, as in JAX;
-* **``initial_prompt`` text**, encoded by ``tokenizer/bpe.py``.
+* **``initial_prompt`` text**, encoded by ``tokenizer/bpe.py``;
+* **the batch stream** (:meth:`Monolith.transcribe_batches`): batch i+1's
+  copy and encode are enqueued on side streams before batch i's decode,
+  and batch i's results are built while the card works.
 
 ``mesh_shape=(d, m)`` runs the engine as one rank of a world of d · m
 processes (``parallel/``, over gloo), ranks numbered with the model axis
@@ -49,7 +52,9 @@ ranks of a group hold the model between them (Megatron tensor parallelism,
 ``parallel/sharding.py``): the weights are quantised whole, then cut, then
 moved to the device; every layer runs on the rank's heads and the layers
 all-reduce over the group (``parallel/collectives.py``), so every rank of
-the group decodes the same tokens. A speculative draft stays whole on
+the group decodes the same tokens. A rank restored from an npz holds only
+its slice from the start (``utils/checkpoint.load_params`` with the mesh;
+``shard=`` here). A speculative draft stays whole on
 every rank, as in JAX. ``transcribe_files`` reads on each data rank only
 its files (with the native loader when it is built, ``native/``).
 
@@ -59,6 +64,7 @@ where there is none raises, and the CPU runs only when asked for.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import time
@@ -108,6 +114,12 @@ from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_s
 from whisper_tpu_torch.tokenizer.languages import lang_code
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
 from whisper_tpu_torch.utils.profiling import StageTimer, Throughput
+
+
+def _samples_f32(x: torch.Tensor) -> torch.Tensor:
+    """Shipped samples → float32 on their device: int16 with the exact
+    inverse of wav.py's int16/32768 read scale, float32 as they are."""
+    return x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
 
 
 class EngineType(enum.IntEnum):
@@ -240,9 +252,15 @@ class Engine:
         tp = self.mesh is not None and self.mesh.model_size > 1
         if not tp:
             params = to_device(params, self.device)  # quantised on the device
+        shard = assets.shard  # a restored slice, or this rank's engine built again on its assets
         if config.quantization == "int8" and not is_quantized(params):
+            if shard is not None:
+                raise ValueError(
+                    "a float model slice cannot be quantised (a row-parallel weight's scale "
+                    "spans the whole d_in): restore it with quantization='int8' "
+                    "(utils/checkpoint.load_params)"
+                )
             params = quantize_params(params)  # the whole tree, before any cut
-        shard = assets.shard  # set where this rank's engine is built again on its assets
         here = (self.mesh.model_index, self.mesh.model_size) if tp else None
         if shard is not None and shard != here:
             raise ValueError(
@@ -276,6 +294,7 @@ class Engine:
             n_text_ctx=self.dims.n_text_ctx,
         )
         self._prompt = np.asarray(prompt, dtype=np.int32)
+        self._prompt_dev = {}  # device → the template there (_prompt_on)
         # Index of SOT within the prompt (> 0 when an initial-prompt prefix
         # precedes it); the language slot is always sot_index + 1.
         self._sot_index = int(np.nonzero(self._prompt == assets.vocab.specials.sot)[0][0])
@@ -402,8 +421,7 @@ class Engine:
         with the decode. ``params`` are the engine's, or their replica on
         a disaggregated encoder's device."""
         b = enc_out.shape[0]
-        prompts = torch.from_numpy(self._prompt).to(enc_out.device, torch.long)
-        prompts = prompts[None, :].repeat(b, 1)
+        prompts = self._prompt_on(enc_out.device)[None, :].repeat(b, 1)
         if not self._autodetect:
             return prompts, None
         cross_kv = precompute_cross_kv(
@@ -421,25 +439,36 @@ class Engine:
         prompts[:, self._sot_index + 1] = lang_toks
         return prompts, cross_kv
 
+    def _prompt_on(self, device: torch.device) -> torch.Tensor:
+        """The prompt template on ``device`` (int64), uploaded once per
+        device: a copy from pageable host memory waits for the card, which
+        an encode enqueued ahead of a decode must not do."""
+        if device not in self._prompt_dev:
+            self._prompt_dev[device] = torch.from_numpy(self._prompt).to(device, torch.long)
+        return self._prompt_dev[device]
+
     def _decode(
         self,
         enc_out: torch.Tensor,
         temperature: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
         draft_enc: Optional[torch.Tensor] = None,
+        prompts: Optional[tuple] = None,
     ):
         """Greedy, beam, sampling or speculative decode → (tokens, lengths,
         avg_logprob or None, no_speech probs or None). Beam rows report their
         length-normalised score as avg_logprob; speculative rows none.
         ``draft_enc``: the draft's own encoder output (None: it shares
-        ``enc_out``).
+        ``enc_out``). ``prompts``: :meth:`_make_prompts`' (prompts,
+        cross_kv), made ahead by the batch stream's encode (None: made
+        here).
 
         ``temperature`` (with ``generator``) forces the sampler whatever the
         beam size: openai's fallback semantics, where beam applies at T = 0
         only and retries sample. Its avg_logprob is the mean logprob per
         generated token (terminating EOT included), the quantity the
         fallback's logprob gate reads."""
-        prompts, cross_kv = self._make_prompts(self.assets.params, enc_out)
+        prompts, cross_kv = prompts or self._make_prompts(self.assets.params, enc_out)
         ns = (
             (self._sot_index, self.vocab.specials.nospeech)
             if self.config.no_speech_threshold is not None
@@ -553,10 +582,7 @@ class Engine:
         """Host batch → float32 samples on the device. int16 batches ship as
         int16 and convert on the device with the exact inverse of wav.py's
         int16/32768 read scale."""
-        x = torch.from_numpy(batch).to(self.device)
-        if x.dtype == torch.int16:
-            x = x.float() * (1.0 / 32768.0)
-        return x
+        return _samples_f32(torch.from_numpy(batch).to(self.device))
 
     def _resolve_audio_ctx(self, batch: Optional[np.ndarray]) -> Optional[int]:
         """``config.audio_ctx`` (None | int | "auto") → the crop for this
@@ -1081,10 +1107,14 @@ class Engine:
         vocab: Optional[Vocab] = None,
         device: Union[str, torch.device] = "cuda",
         draft_params: Optional[Params] = None,
+        shard: Optional[Tuple[int, int]] = None,
     ) -> "Engine":
         """Engine over given port parameters (see
         ``models.params.params_from_jax`` for weights from the JAX package);
-        ``draft_params`` likewise for ``config.draft_model``."""
+        ``draft_params`` likewise for ``config.draft_model``. ``shard``:
+        ``params`` is the slice (model index, model size) of a
+        tensor-parallel rank (``utils/checkpoint.load_params`` with a
+        mesh), which must be this engine's rank."""
         dims = config.dims()
         if vocab_bin is not None:
             assets_bin = read_bin(vocab_bin, multilingual=config.multilingual)
@@ -1096,7 +1126,10 @@ class Engine:
                 num_languages=num_languages_for(dims.n_vocab),
             )
             filters = mel_filterbank(n_mels=dims.n_mels)
-        return cls(_Assets(params, dims, vocab, filters), config, device=device, draft_params=draft_params)
+        return cls(
+            _Assets(params, dims, vocab, filters, shard), config, device=device,
+            draft_params=draft_params,
+        )
 
 
 class Monolith(Engine):
@@ -1115,6 +1148,195 @@ class Monolith(Engine):
             draft_enc = self._encoder_output(samples, audio_ctx, draft=True)
         out = self._to_host(self._decode(enc_out, temperature, generator, draft_enc=draft_enc))
         return (*out, None, (time.perf_counter() - t0) * 1e3, enc_out)
+
+    def transcribe_batches(
+        self, batches: Sequence[np.ndarray], omit_special_tokens: bool = True
+    ) -> List[List[TranscriptionResult]]:
+        """Double-buffered batch stream (JAX's ``Monolith.transcribe_batches``):
+        batch i+1's host→device copy and its encode (mel, encoder, a draft's
+        own encoder, the prompts with language detection and the cross-KV)
+        are enqueued before batch i's decode starts, and batch i's results
+        are built on the host after batch i+2's encode is enqueued, while
+        the card works. Token-identical to a loop of ``transcribe_batch``;
+        one result list per batch. Each batch records its ``model`` time
+        and throughput from its dispatch to its fetch.
+
+        On the card the copy and the encode run on two side streams of
+        :class:`_BatchStream` (pinned staging buffers, events between the
+        streams) and the decode on the caller's current stream. On the
+        CPU the same calls run in the same order, without streams.
+
+        Paths that need a batch's results on the host before the next one
+        (a sampling primary, the fallback ladder, word timestamps, a mesh of
+        several processes) take the sequential base, as in JAX."""
+        if (
+            self._sampling_primary
+            or len(self._schedule) > 1
+            or self._align_mask is not None
+            or (self.mesh is not None and world_size() > 1)
+        ):
+            return super().transcribe_batches(batches, omit_special_tokens)
+        stream = _BatchStream(self.device)
+        out: List[List[TranscriptionResult]] = []
+        fetched = None  # the batch decoded last: its results are built next
+        nxt = self._stream_encode(stream, self._stream_stage(stream, batches[0])) if batches else None
+        for i in range(len(batches)):
+            cur = nxt
+            if i + 1 < len(batches):
+                nxt = self._stream_encode(stream, self._stream_stage(stream, batches[i + 1]))
+            if fetched is not None:
+                out.append(self._stream_results(fetched, omit_special_tokens))
+            fetched = self._stream_decode(stream, cur)
+        if fetched is not None:
+            out.append(self._stream_results(fetched, omit_special_tokens))
+        return out
+
+    def _stream_stage(self, stream: "_BatchStream", samples: np.ndarray) -> dict:
+        """One batch on the host (pad, bucket, its "auto" crop) and its copy
+        to the device on the copy stream. Its dispatch time starts here."""
+        batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
+        ac = self._resolve_audio_ctx(batch)
+        t0 = time.perf_counter()
+        x, copied = stream.stage(batch)
+        return dict(b=b, n=n, audio_ctx=ac, t0=t0, samples=x, copied=copied)
+
+    def _stream_encode(self, stream: "_BatchStream", job: dict) -> dict:
+        """Enqueue one staged batch's encode on the encode stream: its
+        samples to f32, log-mel and encoder (and a draft's own), the prompts
+        with language detection and the cross-KV. Makes no host sync."""
+        with stream.on(stream.encode):
+            stream.wait(stream.encode, job.pop("copied"))
+            samples = job.pop("samples")
+            stream.hand_over(samples, stream.encode)
+            x = _samples_f32(samples)
+            enc_out = self._encoder_output(x, job["audio_ctx"])
+            draft_enc = None
+            if self._draft_params is not None and not self._draft_share_encoder:
+                draft_enc = self._encoder_output(x, job["audio_ctx"], draft=True)
+            prompts, cross_kv = self._make_prompts(self.assets.params, enc_out)
+            job["encoded"] = stream.event(stream.encode)
+        # The decode stream reads these: the allocator must not hand their
+        # memory to a later encode while that decode may still run.
+        stream.hand_over((enc_out, draft_enc, prompts, cross_kv), stream.decode)
+        job.update(enc_out=enc_out, draft_enc=draft_enc, prompts=prompts, cross_kv=cross_kv)
+        return job
+
+    def _stream_decode(self, stream: "_BatchStream", job: dict) -> dict:
+        """Decode one encoded batch on the current stream, behind its encode
+        event, and start its outputs' copy to the host behind an event."""
+        stream.wait(stream.decode, job.pop("encoded"))
+        outs = self._decode(
+            job.pop("enc_out"), draft_enc=job.pop("draft_enc"),
+            prompts=(job.pop("prompts"), job.pop("cross_kv")),
+        )
+        job["host"], job["fetched"] = stream.to_host(outs)
+        return job
+
+    def _stream_results(self, job: dict, omit_special_tokens: bool) -> List[TranscriptionResult]:
+        """Wait for one batch's outputs on the host, record its time and
+        throughput, and build its results."""
+        if job["fetched"] is not None:
+            job["fetched"].synchronize()
+        tokens, lengths, avg_lp, nsp = (None if x is None else x.numpy() for x in job["host"])
+        b, n = job["b"], job["n"]
+        dt = (time.perf_counter() - job["t0"]) * 1e3
+        self.timer.record("model", dt / 1e3)
+        self.throughput.add(
+            audio_seconds=b * (n / 16_000.0),
+            tokens=int(np.sum(lengths[:b])),
+            utterances=b,
+            wall_s=dt / 1e3,
+        )
+        return [
+            self.result_from_tokens(
+                tokens[i], int(lengths[i]), omit_special_tokens, model_ms=dt,
+                avg_logprob=None if avg_lp is None else float(avg_lp[i]),
+                no_speech_prob=None if nsp is None else float(nsp[i]),
+            )
+            for i in range(b)
+        ]
+
+
+class _BatchStream:
+    """The streams, staging buffers and events of one
+    :meth:`Monolith.transcribe_batches` call. On the card: a copy stream
+    and an encode stream beside the caller's current stream (the decode's),
+    two pinned host buffers that take turns (one is refilled only after
+    its last copy has completed), and events between the streams. On the
+    CPU every method runs its work in place and returns no event."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.copy = self.encode = self.decode = None
+        if self.cuda:
+            self.copy = torch.cuda.Stream(device)
+            self.encode = torch.cuda.Stream(device)
+            self.decode = torch.cuda.current_stream(device)
+        self._buffers = [(None, None), (None, None)]  # (pinned buffer, its last copy's event)
+        self._turn = 0
+
+    def on(self, stream):
+        return torch.cuda.stream(stream) if self.cuda else contextlib.nullcontext()
+
+    def event(self, stream):
+        """An event recorded on ``stream`` now (None on the CPU)."""
+        if not self.cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(stream)
+        return event
+
+    def wait(self, stream, event) -> None:
+        """``stream`` waits for ``event`` on the card, not on the host."""
+        if event is not None:
+            stream.wait_event(event)
+
+    def hand_over(self, tensors, stream) -> None:
+        """Mark every tensor of ``tensors`` (nested tuples, lists, dicts) as
+        used on ``stream``, so that its memory is not reused before the work
+        queued there when it is freed has run (``Tensor.record_stream``)."""
+        if not self.cuda or tensors is None:
+            return
+        if isinstance(tensors, torch.Tensor):
+            tensors.record_stream(stream)
+        elif isinstance(tensors, dict):
+            for t in tensors.values():
+                self.hand_over(t, stream)
+        else:
+            for t in tensors:
+                self.hand_over(t, stream)
+
+    def stage(self, batch: np.ndarray):
+        """Host batch → (device tensor, the event after its copy): into the
+        next pinned buffer, then a non-blocking copy on the copy stream."""
+        if not self.cuda:
+            return torch.from_numpy(batch), None
+        turn, self._turn = self._turn, 1 - self._turn
+        buf, last = self._buffers[turn]
+        if last is not None:
+            last.synchronize()  # the buffer's last copy has left it
+        src = torch.from_numpy(batch)
+        if buf is None or buf.dtype != src.dtype or buf.numel() < src.numel():
+            buf = torch.empty(src.numel(), dtype=src.dtype, pin_memory=True)
+        host = buf[: src.numel()].view(src.shape)
+        host.copy_(src)
+        with torch.cuda.stream(self.copy):
+            x = host.to(self.device, non_blocking=True)
+            copied = self.event(self.copy)
+        self._buffers[turn] = (buf, copied)
+        return x, copied
+
+    def to_host(self, outs):
+        """Device outputs → host tensors (token ids and lengths as int32)
+        and the event after which they are there: non-blocking copies into
+        pinned memory on the current stream."""
+        host = [
+            None if x is None
+            else (x.int() if not x.is_floating_point() else x).to("cpu", non_blocking=self.cuda)
+            for x in outs
+        ]
+        return host, self.event(self.decode)
 
 
 class EncDec(Engine):
@@ -1148,14 +1370,18 @@ def create_engine(
     seed: int = 0,
     device: Union[str, torch.device] = "cuda",
     draft_params: Optional[Params] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Engine:
     """Factory (reference create_engine, whisper.cpp:778-790). ``params``
     None → random weights from ``seed``. ``draft_params``: weights for
     ``config.draft_model`` (None: a random draft; the output is the
-    target's greedy decode all the same, see ``decode/speculative.py``)."""
+    target's greedy decode all the same, see ``decode/speculative.py``).
+    ``shard``: ``params`` is a tensor-parallel rank's slice (see
+    :meth:`Engine.from_assets`)."""
     cls = Monolith if EngineType(engine_type) == EngineType.MONOLITH else EncDec
     if params is None:
         return cls.from_random(config, seed=seed, device=device, draft_params=draft_params)
     return cls.from_assets(
-        params, config, vocab_bin=vocab_bin, device=device, draft_params=draft_params
+        params, config, vocab_bin=vocab_bin, device=device, draft_params=draft_params,
+        shard=shard,
     )

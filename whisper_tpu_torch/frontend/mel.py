@@ -50,6 +50,20 @@ def _dft_window_matrices(n_fft: int):
     return w_cos, w_sin
 
 
+@functools.lru_cache(maxsize=8)
+def _device_dft(n_fft: int, device: torch.device, dtype: torch.dtype):
+    """:func:`_dft_window_matrices` and the fold of mirrored bins
+    (whisper.cpp:159-166: bins 1..n_fft/2-1 doubled, DC and Nyquist left
+    alone) on ``device`` in ``dtype``, uploaded once: a copy from host
+    memory waits for the card."""
+    fold = np.full(n_fft // 2 + 1, 2.0)
+    fold[0] = fold[-1] = 1.0
+    return tuple(
+        torch.from_numpy(w).to(device=device, dtype=dtype)
+        for w in (*_dft_window_matrices(n_fft), fold)
+    )
+
+
 def _frame(signal: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
     """[..., n_samples] → [..., n_frames, n_fft]; frame[i, j] = x[hop*i + j],
     zero past the end of the signal."""
@@ -75,19 +89,11 @@ def log_mel_spectrogram(
     x = samples.to(compute_dtype)
 
     frames = _frame(x, n_fft, hop, n_frames)  # [..., F, n_fft]
-    w_cos_np, w_sin_np = _dft_window_matrices(n_fft)
-    w_cos = torch.from_numpy(w_cos_np).to(device=device, dtype=compute_dtype)
-    w_sin = torch.from_numpy(w_sin_np).to(device=device, dtype=compute_dtype)
+    w_cos, w_sin, fold = _device_dft(n_fft, device, compute_dtype)
 
     re = frames @ w_cos  # [..., F, n_bins]
     im = frames @ w_sin
     power = re * re + im * im
-
-    # Fold of mirrored bins (whisper.cpp:159-166): doubles bins
-    # 1..n_fft/2-1 and leaves DC and Nyquist alone.
-    n_bins = n_fft // 2 + 1
-    fold = torch.full((n_bins,), 2.0, dtype=power.dtype, device=device)
-    fold[0] = fold[-1] = 1.0
     power = power * fold
 
     mel = power @ filters.t()  # [..., F, n_mels]

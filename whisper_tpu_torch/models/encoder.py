@@ -9,12 +9,22 @@ collectives per encode.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from whisper_tpu_torch.config import ModelDims
 from whisper_tpu_torch.models import layers
 from whisper_tpu_torch.models.params import Params, sinusoid_position_embedding
 from whisper_tpu_torch.parallel import collectives
+
+
+@functools.lru_cache(maxsize=8)
+def _positions(length: int, channels: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The sinusoidal table on ``device`` in ``dtype``, uploaded once: a
+    copy from pageable host memory waits for the card."""
+    pos = sinusoid_position_embedding(length, channels)
+    return torch.from_numpy(pos).to(device=device, dtype=dtype)
 
 
 @collectives.stage("encode")
@@ -28,8 +38,7 @@ def encode(params: Params, mel: torch.Tensor, dims: ModelDims, tp=None) -> torch
     x = layers.gelu(layers.conv1d(enc["conv1"], x, stride=1))
     x = layers.gelu(layers.conv1d(enc["conv2"], x, stride=2))  # T → T/2
 
-    pos = sinusoid_position_embedding(x.shape[1], dims.n_audio_state)
-    x = x + torch.from_numpy(pos).to(device=x.device, dtype=x.dtype)
+    x = x + _positions(x.shape[1], dims.n_audio_state, x.device, x.dtype)
 
     n_head = collectives.local_heads(dims.n_audio_head, tp)
     for bp in enc["blocks"]:

@@ -128,8 +128,13 @@ def to_device(params: Params, device: torch.device | str) -> Params:
     return _map(lambda _name, x: x.to(device), params)
 
 
-def _tensor_from_numpy(x) -> torch.Tensor:
-    x = np.array(x)  # a copy: the caller's array stays its own
+def _tensor_from_numpy(x, copy: bool = True) -> torch.Tensor:
+    """A numpy array → a CPU tensor of the same bits. ``copy``: the
+    tensor gets memory of its own, and the caller's array stays its own;
+    without it the tensor shares the array's memory (an array the caller
+    hands over, in memory and writable)."""
+    if copy:
+        x = np.array(x)
     if x.dtype.name == "bfloat16" or x.dtype == np.dtype("V2"):
         # ml_dtypes bf16, or bf16 as an npz holds it: same bits as torch's
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
@@ -183,3 +188,7 @@ def leaves(tree):
     else:
         yield tree
 
+
+def count_params(params: Params) -> int:
+    """The number of parameters in a tree (every element of every leaf)."""
+    return sum(x.numel() for x in leaves(params))

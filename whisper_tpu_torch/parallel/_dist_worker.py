@@ -2,7 +2,8 @@
 
     python -m whisper_tpu_torch.parallel._dist_worker --coordinator HOST:PORT \\
         --num-processes N --process-id I (--paths F1,F2,... | --npy BATCH.npy) \\
-        --out RESULT.json [--mesh D,M] [--model large-v3] [--seed 0 | --params PARAMS.pt] \\
+        --out RESULT.json [--mesh D,M] [--model large-v3] \\
+        [--seed 0 | --params PARAMS.pt | --checkpoint PARAMS.npz] \\
         [--device cuda] [--dtype bfloat16] [--beam 5] [--quantization int8] \\
         [--kv-cache-dtype float8_e4m3fn] [--fused-step auto[,off]] [--max-new 64] \\
         [--language en] [--draft-model dev --k-draft 2] [--fallback] \\
@@ -21,8 +22,13 @@ axis M > 1 is tensor parallelism: the rank holds 1/M of the model, see
 a pass over the first file alone, where every rank but the first holds only
 padding) or ``transcribe_batch`` over the [B, n] float32 array in ``--npy``
 (every rank holds it and decodes its share). Weights come from ``--seed``
-(``from_random`` on ``--device``) or from ``--params``, a tree saved with
-``torch.save`` (e.g. ``params_from_jax`` of the JAX package's weights).
+(``from_random`` on ``--device``), from ``--params``, a tree saved with
+``torch.save`` (e.g. ``params_from_jax`` of the JAX package's weights), or
+from ``--checkpoint``, an npz of either package
+(``utils/checkpoint.load_params``): on a model axis > 1 each rank reads only
+its slice of the file, quantised as it is read under ``--quantization
+int8``, and moves only that slice to its device (the restore's host ms in
+the report).
 ``--fused-step`` may list several beam step modes; each runs on the same
 weights. ``--fallback`` adds a retry ladder (0.5 after the primary) behind
 a logprob gate no decode clears, so that every row walks the whole ladder
@@ -148,6 +154,8 @@ def main() -> int:
     weights = ap.add_mutually_exclusive_group()
     weights.add_argument("--seed", type=int, default=0)
     weights.add_argument("--params", default=None, help="torch.save'd parameter tree")
+    weights.add_argument("--checkpoint", default=None,
+                         help="npz of either package: on a model axis > 1, this rank's slice")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--beam", type=int, default=1)
@@ -196,12 +204,25 @@ def main() -> int:
             cfg, fallback_temperatures=(0.5,), logprob_threshold=1e9,
             compression_ratio_threshold=None,
         )
-    params = None
+    params, shard, restore_ms = None, None, None
     if args.params:
         params = torch.load(args.params, map_location="cpu", weights_only=True)
+    elif args.checkpoint:
+        from whisper_tpu_torch.config import MODEL_DIMS
+        from whisper_tpu_torch.parallel.mesh import make_mesh
+        from whisper_tpu_torch.utils.checkpoint import load_params
+
+        tp = make_mesh(mesh, device=args.device) if mesh[1] > 1 else None
+        t0 = time.perf_counter()
+        params, dims = load_params(args.checkpoint, tp, quantization=args.quantization)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if dims != MODEL_DIMS[args.model]:
+            raise SystemExit(f"{args.checkpoint} does not hold a {args.model} model")
+        shard = (tp.model_index, tp.model_size) if tp is not None else None
     engine = create_engine(
-        EngineType.MONOLITH, cfg, params=params, seed=args.seed, device=args.device
+        EngineType.MONOLITH, cfg, params=params, seed=args.seed, device=args.device, shard=shard
     )
+    del params
     if args.npy:
         batch = np.load(args.npy)
         crop = engine._resolve_audio_ctx(engine._prepare_batch(batch)[0])
@@ -283,6 +304,7 @@ def main() -> int:
                     torch.cuda.get_device_name(engine.device)
                     if engine.device.type == "cuda" else "cpu"
                 ),
+                "restore_ms": restore_ms,
                 "params_checksum": params_checksum(engine.assets.params),
                 "param_bytes": param_bytes(engine.assets.params),
                 "mesh": list(mesh),

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from whisper_tpu_torch.config import ModelDims
@@ -110,7 +111,25 @@ def _cut(node, spec, m: int, i: int):
         return {k: _cut(v, spec[k], m, i) for k, v in node.items()}
     if isinstance(node, list):
         return [_cut(v, s, m, i) for v, s in zip(node, spec)]
-    if spec is REPLICATED or m == 1:
-        return node
-    size = node.shape[spec] // m
-    return node.narrow(spec, i * size, size).clone(memory_format=torch.contiguous_format)
+    return cut(node, spec, m, i)
+
+
+def cut(x, axis: Optional[int], m: int, i: int):
+    """Slice ``i`` of ``m`` of one leaf on ``axis`` (None: replicated), the
+    one rule of :func:`shard_params` and of the rank-sliced restore
+    (``utils/checkpoint.load_params`` with a mesh). A torch tensor's slice
+    is a contiguous copy of its own, and a replicated tensor is returned
+    as it is. A numpy array (an ``np.memmap`` of a file member included)
+    always comes back as an array in memory: the slice alone, read from
+    the file only where it lies."""
+    if isinstance(x, np.ndarray):
+        if axis is not REPLICATED and m > 1:
+            size = x.shape[axis] // m
+            index = [slice(None)] * x.ndim
+            index[axis] = slice(i * size, (i + 1) * size)
+            x = x[tuple(index)]
+        return np.array(x)
+    if axis is REPLICATED or m == 1:
+        return x
+    size = x.shape[axis] // m
+    return x.narrow(axis, i * size, size).clone(memory_format=torch.contiguous_format)
