@@ -42,7 +42,11 @@ Phases, in order; any failure exits non-zero before the last line:
    200 and 440 of the flagship's full 448-token context, on fp8 planes (bf16
    rows and rows already in fp8) and on bf16 planes (bf16 rows, the
    default config's cache); K3 over the same points beside K2, checked
-   against its plain version at each.
+   against its plain version at each. K6 (``ops/fp8_upcast``) bitwise, NaN
+   codes NaN: all 256 codes of float8_e4m3fn and float8_e5m2, one layer's
+   plane of the cross probe's defaults [20480, 1500] (timed beside
+   ``.to(torch.bfloat16)`` and the bound), element counts that are not a
+   multiple of 16 and one row; a sliced view and a misaligned base refused.
 
     python3 chip_smoke.py --sweep-tree DIR   # the K2 and K3 sweeps and K5's times alone, DIR's kernels
     python3 chip_smoke.py --k1-tree DIR      # K1's f32 cases and times alone, DIR's kernel
@@ -61,6 +65,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``fused_step="off"`` on the same weights: K4 twice per step (K and V),
    K2 never, and tokens equal to the hybrid run's (the two modes run the
    same arithmetic on the same bytes). The roofline line as in phase 4.
+   Then the quantisation witness: ``quantize_params`` of phase 4's tree on
+   the card equals the same call on the host bitwise, leaf by leaf, and
+   equals the flagship engine's own tree.
 4c. K3's path at full width: ``utils/probe_fused.run`` at large-v3, batch
    4, beam 5, ctx 68, fp8 planes, in its modes "attend" (K3 32 × steps, K2
    never), "dma" and "hybrid" (K2 32 × steps, K3 never), ms per 32-layer
@@ -86,8 +93,8 @@ Phases, in order; any failure exits non-zero before the last line:
    reads only its slice, the flagship's quantised as it is read). Each
    rank holds about half of phase 4's parameter bytes, its checksum equals
    ``shard_params`` of this process's tree at its index (the flagship's:
-   phase 4's tree quantised on the host, as the ranks quantise it, and
-   this process's flagship engine runs on that tree), and its
+   phase 4b's tree, quantised on the card, which 4b holds equal to the
+   host's quantisation the ranks make as they read), and its
    ``max_memory_allocated`` is below the whole tree's bytes (printed with
    the restore's host ms and the peaks measured when each rank drew the
    whole tree on the card, ``TP_PEAK_FROM_RANDOM_GB``); launches per rank exactly K1 32 per encode (its 10
@@ -118,16 +125,28 @@ Phases, in order; any failure exits non-zero before the last line:
    overlap witness: for each batch i, whether encode(i+1)'s end event lies
    inside decode(i)'s window, the ms between them, and encode(i+1)'s host
    ms to enqueue beside its window on the encode stream.
+4g. K6's path at full width: ``utils/probe_cross.run`` at JAX's defaults
+   (large-v3, batch 16, beam 5, Tk 1500, fp8 K/V, 1 + 16 iterations) in
+   its five modes, each with its launch counts set to 0 just before and
+   read just after: K6 exactly 2 × 32 × 17 under "dmastage" and never
+   otherwise, K1–K5 never; the final q of "prod", "stage" and "dmastage"
+   bitwise equal, "chunk" within 4 bf16 ulps of "prod" at max|q|, every q
+   finite. Prints each mode's ms per 32-layer iteration, the rate over
+   its window read, the bytes its ops move, the fp8 window's bound and its
+   device launches per iteration.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
    card's "hybrid", the card's "off" and the CPU's "off"; beam 3 with int8
-   weights and the fp8 KV cache, card "hybrid" against CPU "off"; and beam
+   weights and the fp8 KV cache, card "hybrid" against CPU "off", where a
+   row may leave the CPU's tokens only at a CPU beam margin below 0.25
+   (each flip printed; a token outside its beam's top K + 1 fails); and beam
    3 on two ranks on the card (``mesh_shape=(2, 1)``) under "hybrid" (K2′)
    and "off" against CPU "off"; and tensor parallelism on the card, on
    ``mesh_shape=(1, 2)`` and ``(2, 2)`` (four processes on one card):
    greedy, beam 3 "off" and beam 3 int8 + fp8 KV, every rank's tokens equal
-   to the CPU's single process. Then serving, ``audio_ctx=None``, on
+   to the CPU's single process (int8 + fp8 KV: under the same near-tie
+   rule). Then serving, ``audio_ctx=None``, on
    int16-exact utterances: ``ContinuousTranscriber`` (2 slots, 5
    utterances: slots reused), ``DisaggregatedTranscriber`` and
    ``AsyncTranscriber`` must each give tokens equal to ``engine.transcribe``
@@ -1332,7 +1351,7 @@ def phase_probe_fused(torch, kernels, probe_fused) -> int:
     Then one step of "attend" and one of "hybrid" from the same seed gather
     bitwise-equal windows and give ``h`` within the tolerance of
     ``probe_fused.compare_runs``. Returns K3's launches under "attend"."""
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     args = dict(model="large-v3", batch=4, beam=5, ctx=68, kv=FP8)
     k3_launches = None
     for mode in probe_fused.MODES:
@@ -1341,7 +1360,7 @@ def phase_probe_fused(torch, kernels, probe_fused) -> int:
         torch.cuda.synchronize()
         k3, k2 = gather_attend.launches, fused_step.launches
         others = (attention.launches + gather.launches + mel_fused.launches
-                  + fused_step.sharded_launches)  # counts end here
+                  + fused_step.sharded_launches + fp8_upcast.launches)  # counts end here
         expect = LARGE_V3_DEC_LAYERS * res["steps"]
         log(f"  {mode}: {res['ms_per_step']:.4f} ms per {res['layers']}-layer step "
             f"({res['gb'] / res['ms_per_step'] * 1e3:.0f} GB/s of {res['gb']:.3f} GB r+w); "
@@ -1362,6 +1381,107 @@ def phase_probe_fused(torch, kernels, probe_fused) -> int:
     if not cmp["ok"]:
         fail(f"probe: attend and hybrid disagree after one step: {cmp}")
     return k3_launches
+
+
+PROBE_CROSS_ITERS = 16  # phase 4g: JAX's default iterations
+
+
+def _upcast_equal(torch, got, want) -> bool:
+    """K6's contract: bits equal where the value is not NaN, NaN where it is."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan]))
+
+
+def phase_fp8_upcast(torch, fp8_upcast) -> dict:
+    """K6 against its plain version, bitwise (NaN codes NaN): all 256 codes
+    of float8_e4m3fn and float8_e5m2, one layer's plane of the probe's
+    defaults [B·H·Dh, Tk] = [20480, 1500] (the record), counts that are not
+    a multiple of 16, one row; a sliced view and a misaligned base refused;
+    one device kernel per call (profiler). Times the kernel, the plain
+    version and the library call (``.to(torch.bfloat16)``, which is also
+    the plain version's body) beside the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+    cases = [(f"all 256 codes, {dt}", codes.view(getattr(torch, dt))) for dt in (FP8, "float8_e5m2")]
+    plane = torch.randn((20480, 1500), generator=gen, device="cuda", dtype=torch.bfloat16).to(getattr(torch, FP8))
+    cases.append(("the probe's plane [20480, 1500]", plane))
+    for shape in ((1000003,), (3, 5, 7), (1, 1500)):
+        x = torch.randn(shape, generator=gen, device="cuda").mul(64).to(getattr(torch, FP8))
+        cases.append((f"{list(shape)} ({x.numel() % 16} past the last 16)", x))
+    for label, x in cases:
+        before = fp8_upcast.launches
+        got = fp8_upcast.dma_upcast(x)
+        torch.cuda.synchronize()
+        want = fp8_upcast.dma_upcast_reference(x)
+        if fp8_upcast.launches != before + 1 or not _upcast_equal(torch, got, want):
+            fail(f"K6 differs from its plain version (or did not count its launch): {label}")
+        log(f"  K6 {label}: bitwise equal ({int(torch.isnan(want).sum())} NaN codes NaN)")
+    for label, bad in (("a sliced view", plane[:, 1:]), ("a base 1 byte past 16", plane.reshape(-1)[1:])):
+        try:
+            fp8_upcast.dma_upcast(bad)
+            fail(f"K6 took {label}")
+        except ValueError as e:
+            log(f"  K6 refuses {label}: {e}")
+    names = kernels_per_call(torch, lambda: fp8_upcast.dma_upcast(plane))
+    if len(names) != 1 or fp8_upcast.KERNEL_SYMBOL not in names[0]:
+        fail(f"K6: one call launched {names}")
+    err = (fp8_upcast.dma_upcast(plane).float() - plane.float()).abs().max().item()
+    kern_ms = time_ms(lambda: fp8_upcast.dma_upcast(plane))
+    plain_ms = time_ms(lambda: fp8_upcast.dma_upcast_reference(plane))
+    lib_ms = time_ms(lambda: plane.to(torch.bfloat16))
+    bound = bytes_bound_ms(plane.numel() * 3)  # fp8 read once, bf16 written once
+    log(f"  K6 [20480, 1500] {FP8}: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f".to(torch.bfloat16) {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes: 92.16 MB); "
+        f"one kernel per call ({names[0]})")
+    return {
+        "name": "fp8_upcast", "route": "cuda", "source": "whisper_tpu_torch/csrc/fp8_upcast.cu",
+        "replaces": "tools/probe_cross.py:119", "launches": None, "max_abs_err": err, "ms": kern_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+        "shape": [20480, 1500], "dtype": FP8,
+    }
+
+
+def phase_probe_cross(torch, kernels, probe_cross) -> dict:
+    """K6's path at full width (docstring, phase 4g): ``probe_cross.run`` at
+    JAX's defaults in each mode, launches counted per mode. Returns K6's
+    launches under "dmastage" and each mode's record."""
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
+    torch.backends.cuda.matmul.allow_tf32 = False  # the probe's f32 products in f32, torch's default
+    args = dict(model="large-v3", batch=16, beam=5, tk=1500, kv=FP8, iters=PROBE_CROSS_ITERS, warmup=1)
+    qs, records = {}, {}
+    for mode in probe_cross.MODES:
+        torch.cuda.synchronize()
+        reset_counts(*kernels)  # counts start here: this mode's run
+        res = probe_cross.run(**args, mode=mode)
+        torch.cuda.synchronize()
+        n = {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
+             "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
+             "K6": fp8_upcast.launches}  # counts end here
+        rec = dict(probe_cross.record(mode, res), launches=n)
+        log(f"  {mode}: {rec['ms_per_iter']:.4f} ms per {res['layers']}-layer iteration "
+            f"({rec['gb_per_s']:.0f} GB/s of its {rec['gb']:.3f} GB window read); moves "
+            f"{rec['moved_gb']:.3f} GB by its ops ({rec['moved_gb'] / rec['ms_per_iter'] * 1e3:.0f} GB/s); "
+            f"fp8 window bound {rec['bound_ms']:.4f} ms ({rec['bound_ms'] / rec['ms_per_iter']:.3f} of "
+            f"the time); {rec['launches_per_iter']} device launches per iteration; launches {n}")
+        for name, k in (rec["top_kernels"] or {}).items():
+            log(f"    {k['ms']:8.3f} device ms in {k['count']:4d} launches of {name[:240]}")
+        want = 2 * LARGE_V3_DEC_LAYERS * res["steps"] if mode == "dmastage" else 0
+        if n != dict.fromkeys(n, 0) | {"K6": want} or res["layers"] != LARGE_V3_DEC_LAYERS:
+            fail(f"4g {mode}: launches {n}, expected K6 {want} and nothing else")
+        if not bool(torch.isfinite(res["q"].float()).all()):
+            fail(f"4g {mode}: q not finite")
+        qs[mode], records[mode] = res["q"], rec
+    for mode in ("stage", "dmastage"):
+        if not torch.equal(qs[mode], qs["prod"]):
+            fail(f"4g: {mode}'s q is not bitwise equal to prod's")
+    tol = bf16_tolerance(qs["prod"].float().abs().max().item())
+    err = (qs["chunk"].float() - qs["prod"].float()).abs().max().item()
+    log(f"  q of prod, stage and dmastage bitwise equal; chunk against prod: max_abs_err {err:.3g} "
+        f"(tol {tol:.3g}: 4 bf16 ulps at max|q|, each rounds its softmax weights at another place)")
+    if err > tol:
+        fail(f"4g: chunk's q is {err:.3g} from prod's, tol {tol:.3g}")
+    return {"k6_launches": records["dmastage"]["launches"]["K6"], "records": records}
 
 
 def synthetic_utterance(seconds: float, seed: int) -> np.ndarray:
@@ -1431,7 +1551,7 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     engine and its batch's results."""
     from whisper_tpu_torch.audio.wav import write_wav
 
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     cfg = EngineConfig(model="large-v3", max_new_tokens=64)
     engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")
     dims = engine.dims
@@ -1471,9 +1591,9 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
     check_results([single], engine, dims.n_vocab)
     launches = attention.launches  # counts end here
     others = (fused_step.launches, gather.launches, gather_attend.launches, mel_fused.launches,
-              fused_step.sharded_launches)
+              fused_step.sharded_launches, fp8_upcast.launches)
     if any(others):
-        fail(f"greedy launched K2, K4, K3, K5, K2′ {others} times, expected none")
+        fail(f"greedy launched K2, K4, K3, K5, K2′, K6 {others} times, expected none")
 
     log(
         f"  large-v3 bf16, batch 4 ({audio_s:.1f} s of audio): {wall * 1e3:.1f} ms "
@@ -1497,7 +1617,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     counts of their runs, the hybrid engine and its batch's results."""
     from whisper_tpu_torch.audio.wav import write_wav
 
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     cfg = EngineConfig(
         model="large-v3", beam_size=5, quantization="int8", kv_cache_dtype=FP8,
         max_new_tokens=64,
@@ -1539,7 +1659,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     check_results([single], engine, dims.n_vocab)
     k1, k2, k4, steps = attention.launches, fused_step.launches, gather.launches, beam.steps
     k3, k5, k2s = gather_attend.launches, mel_fused.launches, fused_step.sharded_launches
-    # counts end here
+    k6 = fp8_upcast.launches  # counts end here
 
     log(
         f"  large-v3 beam 5 int8 + fp8 KV, batch 4 ({audio_s:.1f} s of audio): "
@@ -1559,8 +1679,8 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         fail(f"no decode steps ran ({steps}) or the decoder has {dims.n_text_layer} layers")
     if k1 != LARGE_V3_ENC_LAYERS * encodes:
         fail(f"K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS * encodes}")
-    if k3 or k5 or k2s:
-        fail(f"hybrid: K3 launched {k3} times, K5 {k5}, K2′ {k2s}, expected none")
+    if k3 or k5 or k2s or k6:
+        fail(f"hybrid: K3 launched {k3} times, K5 {k5}, K2′ {k2s}, K6 {k6}, expected none")
     if k2 != LARGE_V3_DEC_LAYERS * steps or k4 != 0:
         fail(f"hybrid: K2 launched {k2} times (expected {LARGE_V3_DEC_LAYERS * steps}), K4 {k4} (expected 0)")
 
@@ -1573,7 +1693,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     torch.cuda.synchronize()
     wall_off = time.perf_counter() - t0
     k2_off, k4_off, steps_off = fused_step.launches, gather.launches, beam.steps
-    k35_off = gather_attend.launches + mel_fused.launches
+    k35_off = gather_attend.launches + mel_fused.launches + fp8_upcast.launches
     # counts end here
     log(
         f"  fused_step='off': {wall_off * 1e3:.1f} ms → {audio_s / wall_off:.2f} audio-s/s; "
@@ -1586,6 +1706,31 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
             fail(f"hybrid and off tokens differ: {a.tokens[:a.length].tolist()} vs {b.tokens[:b.length].tolist()}")
     log("  hybrid and off tokens equal")
     return k2, k4_off, engine, results
+
+
+def phase_quantize_witness(torch, main_engine, beam_engine) -> None:
+    """Phase 4b's witness of the int8 quantisation: ``quantize_params`` of
+    phase 4's tree on the card equals the same call on the host bitwise,
+    leaf by leaf (each divide takes a divisor on the device: see
+    ``models/quantize.py``), and the flagship engine's own tree (quantised
+    on the card at construction from the same seed) equals both."""
+    from whisper_tpu_torch.models.params import leaves, to_device
+    from whisper_tpu_torch.models.quantize import quantize_params
+
+    t0 = time.perf_counter()
+    on_card = list(leaves(quantize_params(main_engine.assets.params)))
+    on_host = list(leaves(quantize_params(to_device(main_engine.assets.params, "cpu"))))
+    flagship = list(leaves(beam_engine.assets.params))
+    if not len(on_card) == len(on_host) == len(flagship):
+        fail(f"4b: {len(on_card)} leaves quantised on the card, {len(on_host)} on the host, "
+             f"{len(flagship)} in the flagship engine")
+    for i, (c, h, f) in enumerate(zip(on_card, on_host, flagship)):
+        if not (torch.equal(c.cpu(), h) and torch.equal(c, f)):
+            fail(f"4b: quantised leaf {i} ({c.dtype}, {list(c.shape)}) differs between the card, the host "
+                 f"and the flagship engine")
+    n = sum(x.numel() for x in on_card)
+    log(f"  quantize_params of phase 4's tree: card == host == the flagship engine's tree, bitwise, "
+        f"{len(on_card)} leaves, {n} values ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_data_parallel(torch, beam_engine, beam_results) -> list:
@@ -1819,8 +1964,7 @@ def _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s) -> dict:
     their slices of ``npz`` (phase 4's weights) and run; checks and
     numbers as the docstring says."""
     from whisper_tpu_torch.decode import beam as beam_search
-    from whisper_tpu_torch.models.params import to_device
-    from whisper_tpu_torch.models.quantize import param_bytes, quantize_params
+    from whisper_tpu_torch.models.quantize import param_bytes
     from whisper_tpu_torch.parallel._dist_worker import launch, params_checksum
     from whisper_tpu_torch.parallel.sharding import shard_params
 
@@ -1838,14 +1982,9 @@ def _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s) -> dict:
             "--max-new", str(TP_BUDGET), "--stages", *flags,
         ], tmp, timeout=600)
     launch_s = time.perf_counter() - t0
+    # The ranks quantise phase 4's tree on the host as they read it; the
+    # flagship's tree was quantised on the card, which phase 4b holds equal.
     assets = engine.assets
-    if cfg.quantization:
-        # The ranks quantise phase 4's tree on the host as they read it: the
-        # reference is that tree quantised whole on the host (the card's
-        # quantize_params divides by a host scalar through its reciprocal,
-        # ROADMAP Queue 3), then cut, and this process's engine runs on it.
-        assets = dataclasses.replace(assets, params=to_device(
-            quantize_params(to_device(main_engine.assets.params, "cpu")), engine.device))
     ref = assets.params
     whole = param_bytes(ref)
     tree_bytes = param_bytes(main_engine.assets.params)  # the whole tree the npz holds
@@ -2007,7 +2146,7 @@ def _stream_witness(torch, engine, beam):
 def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
     """The batch stream at full width (docstring, phase 4f). Returns, per
     config, the stream's launches and its numbers."""
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     batches, audio_s = stream_batches()
     # The debug mode must see a host sync: a witness that the check can fail.
     torch.cuda.set_sync_debug_mode("error")
@@ -2031,7 +2170,7 @@ def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
         first = runs[0]
         want = {"K1": LARGE_V3_ENC_LAYERS * len(batches),
                 "K2": LARGE_V3_DEC_LAYERS * first["beam_steps"] if engine.config.beam_size > 1 else 0,
-                "K2′": 0, "K3": 0, "K4": 0, "K5": 0}
+                "K2′": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
         for r in runs:
             if r["launches"] != want or (engine.config.beam_size > 1 and r["beam_steps"] == 0):
                 fail(f"4f {label} {r['way']}: launched {r['launches']}, expected {want}")
@@ -2086,7 +2225,7 @@ def _stream_run(torch, kernels, beam, engine, batches, way) -> dict:
     """One run of phase 4f's batches, ``transcribe_batches`` ("stream") or a
     loop of ``transcribe_batch`` ("loop"), watched by
     :func:`_stream_witness`, with its launches and peak memory."""
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     with _stream_witness(torch, engine, beam) as rec:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2101,7 +2240,7 @@ def _stream_run(torch, kernels, beam, engine, batches, way) -> dict:
         wall = time.perf_counter() - t0
         launches = {"K1": attention.launches, "K2": fused_step.launches,
                     "K2′": fused_step.sharded_launches, "K3": gather_attend.launches,
-                    "K4": gather.launches, "K5": mel_fused.launches}
+                    "K4": gather.launches, "K5": mel_fused.launches, "K6": fp8_upcast.launches}
         beam_steps = beam.steps  # counts end here
     decode_ms = sum(s.elapsed_time(e) for s, e, _ in rec["decode"])
     steps = sum(n for _, _, n in rec["decode"])
@@ -2204,18 +2343,37 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
         "cpu off": beam_run("cpu", "off"),
     }
     q8 = dict(quantization="int8", kv_cache_dtype=FP8)
-    with _beam_trace(beam_search) as cpu_q_rounds:  # phase 5's tp leg reads its margins
+    with _beam_trace(beam_search) as cpu_q_rounds:  # the int8+fp8 checks read its margins
         cpu_q = beam_run("cpu", "off", **q8)
-    runs_q = {"card hybrid int8+fp8": beam_run("cuda", "hybrid", **q8), "cpu off int8+fp8": cpu_q}
-    for group in (runs, runs_q):
-        (first, ref), *rest = group.items()
-        for r in ref:
-            log(f"  beam 3, {first}: {r.tokens[: r.length].tolist()}")
-        for name, res in rest:
-            for a, b in zip(ref, res):
-                if not np.array_equal(a.tokens, b.tokens) or a.language != b.language:
-                    fail(f"tiny f32 beam 3: {name} tokens {b.tokens[: b.length].tolist()} differ from {first}'s")
-            log(f"  beam 3, {name}: equal")
+    (first, ref), *rest = runs.items()
+    for r in ref:
+        log(f"  beam 3, {first}: {r.tokens[: r.length].tolist()}")
+    for name, res in rest:
+        for a, b in zip(ref, res):
+            if not np.array_equal(a.tokens, b.tokens) or a.language != b.language:
+                fail(f"tiny f32 beam 3: {name} tokens {b.tokens[: b.length].tolist()} differ from {first}'s")
+        log(f"  beam 3, {name}: equal")
+    # int8 + fp8 KV: the near-tie rule of the tensor-parallel legs below. An
+    # fp8 store rounds to 3 mantissa bits, so a last-bit f32 difference
+    # (the card's summation order) moves a stored K or V value by a whole
+    # step where it lies at a rounding edge: a row may leave the CPU's
+    # tokens only where the CPU's own beam margin there is below 0.25.
+    card_q, flips = beam_run("cuda", "hybrid", **q8), 0
+    for i, (a, b) in enumerate(zip(card_q, cpu_q)):
+        log(f"  beam 3, cpu off int8+fp8: {b.tokens[: b.length].tolist()}")
+        if np.array_equal(a.tokens, b.tokens) and a.language == b.language:
+            continue
+        what = f"tiny f32 beam 3 int8+fp8, card hybrid against cpu off, row {i}"
+        if a.language != b.language:
+            fail(f"{what}: language {a.language} differs from the CPU's {b.language}")
+        p_len = len(b.tokens) - cfg.max_new_tokens
+        gap, rnd = _beam_flip_gap(cpu_q_rounds, i, 3, a.tokens[p_len : a.length].tolist(), what)
+        log(f"  beam 3, card hybrid int8+fp8, row {i}: {a.tokens[: a.length].tolist()}, leaves the CPU's "
+            f"tokens at round {rnd}, the CPU's margin there {gap:.4f} (rule: < {BF16_NEAR_TIE})")
+        if gap >= BF16_NEAR_TIE:
+            fail(f"{what}: tokens differ at a margin of {gap:.4f}, not a near tie")
+        flips += 1
+    log(f"  beam 3, card hybrid int8+fp8: equal to cpu off but for {flips} near-tie flips")
 
     # Two ranks on the card (mesh_shape=(2, 1)), both step modes, against
     # the CPU's single-process run.
@@ -2410,7 +2568,7 @@ def _latency_line(lat, audio_s, wall) -> tuple:
 def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
     """Phase 6a for one slot-pool class: the utterances in waves of 4,
     launches counted over the run."""
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     pool = cls(engine, n_slots=8, prefill_batch=2)
     pool.warmup()
     reset_counts(*kernels)  # counts start here: the slot pool's run
@@ -2419,7 +2577,7 @@ def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
     torch.cuda.synchronize()
     k1 = attention.launches
     others = (fused_step.launches, fused_step.sharded_launches, gather_attend.launches, gather.launches,
-              mel_fused.launches)  # counts end here
+              mel_fused.launches, fp8_upcast.launches)  # counts end here
     check_results(results, engine, engine.dims.n_vocab)
     audio_s = sum(len(u) for u in utts) / 16_000.0
     p50, p95, line = _latency_line(lat, audio_s, wall)
@@ -2427,11 +2585,11 @@ def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
     log(f"  {cls.__name__}: {len(utts)} utterances ({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; "
         f"occupancy {pool.occupancy:.3f}, dispatch efficiency {pool.dispatch_efficiency:.3f}, "
         f"{steps} macro-steps of {pool.sync_every} steps, {prefills} prefill dispatches")
-    log(f"    launches: K1 {k1} ({prefills} prefills × {LARGE_V3_ENC_LAYERS} layers); K2, K2′, K3, K4, K5 {others}")
+    log(f"    launches: K1 {k1} ({prefills} prefills × {LARGE_V3_ENC_LAYERS} layers); K2, K2′, K3, K4, K5, K6 {others}")
     if k1 != LARGE_V3_ENC_LAYERS * prefills or prefills == 0:
         fail(f"{cls.__name__}: K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS} × {prefills} prefills")
     if any(others):
-        fail(f"{cls.__name__}: K2, K2′, K3, K4, K5 launched {others} times, expected none")
+        fail(f"{cls.__name__}: K2, K2′, K3, K4, K5, K6 launched {others} times, expected none")
     return {"class": cls.__name__, "results": results, "k1": k1, "prefill_dispatches": prefills,
             "macro_steps": steps, "latency_p50_s": p50, "latency_p95_s": p95, "wall_s": wall,
             "audio_s_per_s": audio_s / wall, "occupancy": pool.occupancy,
@@ -2463,7 +2621,7 @@ def phase_async_flagship(torch, kernels, beam, engine) -> dict:
 
     from whisper_tpu_torch.engine.serving import AsyncTranscriber
 
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     utts = serving_utterances()[2:10]
     lat = [None] * len(utts)
     results = [None] * len(utts)
@@ -2491,8 +2649,8 @@ def phase_async_flagship(torch, kernels, beam, engine) -> dict:
     wall = time.perf_counter() - t_start
     torch.cuda.synchronize()
     k1, k2, steps = attention.launches, fused_step.launches, beam.steps
-    others = (gather.launches, gather_attend.launches, mel_fused.launches, fused_step.sharded_launches)
-    # counts end here
+    others = (gather.launches, gather_attend.launches, mel_fused.launches, fused_step.sharded_launches,
+              fp8_upcast.launches)  # counts end here
     flushes = batches_run() - flushes0
     if any(th.is_alive() for th in threads) or any(r is None for r in results):
         fail("async flagship: a client thread did not finish")
@@ -2502,13 +2660,13 @@ def phase_async_flagship(torch, kernels, beam, engine) -> dict:
     log(f"  AsyncTranscriber(max_batch=4), flagship: {len(utts)} utterances from 4 threads "
         f"({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; {flushes} flushes, {steps} beam steps")
     log(f"    launches: K1 {k1} ({flushes} flushes × {LARGE_V3_ENC_LAYERS}), K2 {k2} ({steps} steps × "
-        f"{LARGE_V3_DEC_LAYERS}); K4, K3, K5, K2′ {others}")
+        f"{LARGE_V3_DEC_LAYERS}); K4, K3, K5, K2′, K6 {others}")
     if flushes == 0 or k1 != LARGE_V3_ENC_LAYERS * flushes:
         fail(f"async flagship: K1 launched {k1} times over {flushes} flushes")
     if steps == 0 or k2 != LARGE_V3_DEC_LAYERS * steps:
         fail(f"async flagship: K2 launched {k2} times over {steps} beam steps")
     if any(others):
-        fail(f"async flagship: K4, K3, K5, K2′ launched {others} times, expected none")
+        fail(f"async flagship: K4, K3, K5, K2′, K6 launched {others} times, expected none")
     return {"k1": k1, "k2": k2, "flushes": flushes, "beam_steps": steps, "latency_p50_s": p50,
             "latency_p95_s": p95, "wall_s": wall, "audio_s_per_s": audio_s / wall}
 
@@ -2573,15 +2731,15 @@ class _Spy:
 
 
 def _counts(kernels, beam) -> dict:
-    attention, fused_step, gather, gather_attend, mel_fused = kernels
+    attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     return {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
             "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
-            "beam_steps": beam.steps}
+            "K6": fp8_upcast.launches, "beam_steps": beam.steps}
 
 
 def _expect(label: str, got: dict, want: dict) -> None:
     """Every kernel's launches as ``want`` says (0 where it says nothing)."""
-    bad = {k: (got[k], want.get(k, 0)) for k in ("K1", "K2", "K2′", "K3", "K4", "K5")
+    bad = {k: (got[k], want.get(k, 0)) for k in ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
            if got[k] != want.get(k, 0)}
     if bad:
         fail(f"{label}: launches (got, expected) {bad}")
@@ -2917,10 +3075,10 @@ SPEC_F32_BUDGET = 32  # phase 8a's tokens per row
 CLI_RUNNER = (
     "import atexit, json, runpy, sys\n"
     "from whisper_tpu_torch.frontend import mel_fused\n"
-    "from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend\n"
+    "from whisper_tpu_torch.ops import attention, fp8_upcast, fused_step, gather, gather_attend\n"
     "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': attention.launches, "
     "'K2': fused_step.launches, 'K2′': fused_step.sharded_launches, 'K3': gather_attend.launches, "
-    "'K4': gather.launches, 'K5': mel_fused.launches}), file=sys.stderr))\n"
+    "'K4': gather.launches, 'K5': mel_fused.launches, 'K6': fp8_upcast.launches}), file=sys.stderr))\n"
     "sys.argv = ['whisper_tpu_torch.cli'] + sys.argv[1:]\n"
     "runpy.run_module('whisper_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
 )
@@ -3158,8 +3316,8 @@ def main() -> None:
     from whisper_tpu_torch.decode import beam
     from whisper_tpu_torch.engine import EngineType, Monolith, create_engine
     from whisper_tpu_torch.frontend import mel_fused
-    from whisper_tpu_torch.ops import attention, build, fused_step, gather, gather_attend
-    from whisper_tpu_torch.utils import probe_fused
+    from whisper_tpu_torch.ops import attention, build, fp8_upcast, fused_step, gather, gather_attend
+    from whisper_tpu_torch.utils import probe_cross, probe_fused
 
     log("[1] card")
     card = card_line()
@@ -3170,7 +3328,7 @@ def main() -> None:
 
     log("[2] build")
     t0 = time.perf_counter()
-    kernels = (attention, fused_step, gather, gather_attend, mel_fused)
+    kernels = (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast)
     built = build.build([k.KERNEL for k in kernels])
     log(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (secs, ptxas) in built.items():
@@ -3189,6 +3347,7 @@ def main() -> None:
     k3 = phase_gather_attend(torch, gather_attend, fused_step)
     k3["sweep"] = k3_sweep(torch, gather_attend, fused_step)
     k5 = phase_mel_fused(torch, mel_fused)
+    k6 = phase_fp8_upcast(torch, fp8_upcast)
 
     log("[4] main path: large-v3, greedy, bf16, language detection")
     k1["launches"], main_engine, main_results = phase_main_path(
@@ -3199,6 +3358,7 @@ def main() -> None:
     k2["launches"], k4["launches"], beam_engine, beam_results = phase_beam_path(
         torch, kernels, beam, EngineConfig, EngineType, create_engine
     )
+    phase_quantize_witness(torch, main_engine, beam_engine)
 
     log("[4c] K3's path: probe_fused at large-v3, batch 4, beam 5, ctx 68, fp8 planes")
     k3["launches"] = phase_probe_fused(torch, kernels, probe_fused)
@@ -3220,9 +3380,20 @@ def main() -> None:
     log("[4f] the batch stream: transcribe_batches against a loop of transcribe_batch, large-v3, "
         "greedy bf16 and the flagship")
     stream = phase_batch_stream(torch, kernels, beam, main_engine, beam_engine)
-    for name, rec in zip(("K1", "K2", "K2′", "K3", "K4", "K5"), (k1, k2, k2s, k3, k4, k5)):
+    for name, rec in zip(("K1", "K2", "K2′", "K3", "K4", "K5", "K6"), (k1, k2, k2s, k3, k4, k5, k6)):
         rec["stream_launches"] = {label: r["launches"][name] for label, r in stream.items()}
     log(f"batch stream record: {json.dumps(stream)}; phase 4f took {time.perf_counter() - t4f:.1f} s")
+
+    t4g = time.perf_counter()
+    log(f"[4g] K6's path: probe_cross at large-v3, batch 16, beam 5, Tk 1500, fp8, {PROBE_CROSS_ITERS} "
+        "iterations, in its five modes")
+    cross = phase_probe_cross(torch, kernels, probe_cross)
+    k6["launches"] = cross["k6_launches"]
+    k6["probe_launches"] = {mode: rec["launches"]["K6"] for mode, rec in cross["records"].items()}
+    k6["probe"] = {mode: {key: rec[key] for key in ("ms_per_iter", "moved_gb", "launches_per_iter")}
+                   for mode, rec in cross["records"].items()}
+    k6["engine_launches"] = {"greedy": 0, "beam": 0}  # phases 4 and 4b fail on any other count
+    log(f"probe_cross record: {json.dumps(cross['records'])}; phase 4g took {time.perf_counter() - t4g:.1f} s")
 
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
@@ -3239,7 +3410,7 @@ def main() -> None:
     log(f"serving record: {json.dumps(serving)}")
     k1["serving_launches"] = {name: rec["k1"] for name, rec in serving.items()}
     k2["serving_launches"] = {name: rec.get("k2", 0) for name, rec in serving.items()}
-    for rec in (k2s, k3, k4, k5):
+    for rec in (k2s, k3, k4, k5, k6):
         rec["serving_launches"] = {name: 0 for name in serving}
 
     t7 = time.perf_counter()
@@ -3271,8 +3442,8 @@ def main() -> None:
     log(f"native record: {json.dumps(native_rec)}; tensor-parallel record: {json.dumps(tp)}; "
         f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
-    names = ("K1", "K2", "K2′", "K3", "K4", "K5")
-    for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5)):
+    names = ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
+    for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5, k6)):
         rec["options_launches"] = {
             "7a": options["7a"]["launches"][name], "7b": options["7b"]["launches"][name],
             "7c": options["7c"]["launches"][name], "7d_long": options["7d"]["long_launches"][name],
@@ -3283,7 +3454,7 @@ def main() -> None:
     k1["f32"]["launches"] = spec["8a_greedy"]["launches"]["K1"]  # the f32 main path: 8a's greedy batch
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5, k6]}))
     print(card)
     print(json.dumps({
         "ok": True,

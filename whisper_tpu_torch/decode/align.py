@@ -133,7 +133,8 @@ def alignment_matrix(
         out = layers.merge_heads(out.transpose(1, 2).to(h.dtype))
         h = h + layers.linear(bp["cross"]["o"], out, tp=tp)
         h = h + layers.mlp(bp["mlp"], layers.layer_norm(bp["ln3"], h), tp=tp)
-    return all_reduce_model(acc, tp) / n_sel
+    acc = all_reduce_model(acc, tp)
+    return acc / torch.full_like(acc, n_sel)  # a device divisor: see models/quantize.py
 
 
 def median_filter(matrix: np.ndarray, width: int = 7) -> np.ndarray:

@@ -259,6 +259,17 @@ def reorder_cache_window(
     return out
 
 
+def length_norm(gen_len: torch.Tensor, length_penalty: Optional[float]) -> torch.Tensor:
+    """The divisor of a finished beam's score: its generated length, or
+    the GNMT penalty ``((5 + len) / 6) ** length_penalty``. The 6 is a
+    tensor on ``gen_len``'s device: CUDA's divide by a host scalar
+    multiplies by its reciprocal, an ulp off JAX's divide for some
+    lengths."""
+    if length_penalty is None:
+        return gen_len
+    return ((5.0 + gen_len) / torch.full_like(gen_len, 6.0)) ** length_penalty
+
+
 def beam_decode(
     params: Params,
     enc_out: torch.Tensor,  # [B, n_audio_ctx, d]
@@ -429,8 +440,7 @@ def beam_decode(
     )
 
     # --- rank by normalised score (openai MaximumLikelihoodRanker) ---
-    gen_len = torch.clamp_min(fin.lengths - p_len, 1).float()
-    norm = gen_len if length_penalty is None else ((5.0 + gen_len) / 6.0) ** length_penalty
+    norm = length_norm(torch.clamp_min(fin.lengths - p_len, 1).float(), length_penalty)
     norm_scores = torch.where(fin.valid, fin.scores / norm, NEG_INF)
     best = torch.argmax(norm_scores, dim=1)
     rows = torch.arange(b, device=device)

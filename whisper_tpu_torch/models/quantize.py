@@ -12,7 +12,9 @@ block weight [d_in, d_out] gets a scale [d_out], the per-layer slice of
 JAX's stacked [L, d_out]), and conv weights are ``[c_out, c_in, width]``
 with a scale per ``c_out``. The arithmetic is JAX's: an f32 divide, round
 half to even, clip to ±127, so ``w_q`` and ``w_s`` equal JAX's bitwise for
-the same weights. The work runs on the weights' own device.
+the same weights. The work runs on the weights' own device; every divisor
+is a tensor there, since PyTorch's CUDA divide by a host scalar multiplies
+by its reciprocal, which is an ulp off the divide for some values.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def absmax_quantize(w: torch.Tensor, reduce_dims) -> Tuple[torch.Tensor, torch.T
     ``w`` to within scale/2 elementwise."""
     wf = w.float()
     amax = wf.abs().amax(dim=reduce_dims, keepdim=True)
-    scale = torch.clamp_min(amax / INT8_MAX, _EPS)
+    scale = torch.clamp_min(amax / torch.full_like(amax, INT8_MAX), _EPS)
     q = torch.clamp(torch.round(wf / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
     return q, scale.squeeze(reduce_dims)
 

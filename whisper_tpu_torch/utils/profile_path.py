@@ -37,10 +37,10 @@ import numpy as np
 def _own_kernels() -> dict:
     """{name: (symbol in the trace, the wrapper's launch count now)}."""
     from whisper_tpu_torch.frontend import mel_fused
-    from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend
+    from whisper_tpu_torch.ops import attention, fp8_upcast, fused_step, gather, gather_attend
 
     own = {m.KERNEL: (m.KERNEL_SYMBOL, m.launches)
-           for m in (attention, fused_step, gather, gather_attend, mel_fused)}
+           for m in (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast)}
     own[fused_step.SHARDED_KERNEL] = (fused_step.SHARDED_KERNEL_SYMBOL, fused_step.sharded_launches)
     return own
 
