@@ -242,6 +242,30 @@ Phases, in order; any failure exits non-zero before the last line:
    Python, transcribes a WAV with ``tiny`` random weights (seed 0) on
    ``cuda``: its text equals this process's engine's.
 
+11. The repo's measurement entry points on the card, at full width
+   (large-v3), every launch count set to 0 just before each sub-phase and
+   checked exactly just after it:
+11a. ``utils/bench.run`` (bench.py's harness) on phase 4b's weights: the
+   flagship's knobs (beam 5, int8, fp8 KV, bf16, "auto") at batch 4, 32
+   tokens, 1 repeat: K1 32 × the encodes (warm-up, serialized, pipelined:
+   5), K2 32 × the beam steps; the last batch's tokens equal a plain
+   ``transcribe_batch`` of the same batch on the same engine; ``mfu`` and
+   ``hbm_utilization`` within (0, 1.05]; the record printed. Then the same
+   at ``BENCH_BEAM=1``: K2 never.
+11b. ``utils/bench_serving.run`` (``tools/bench_serving.py``) on phase
+   4's weights, greedy bf16: ``--n 8 --slots 4 --prefill-batch 2
+   --max-new 16``, its three front-ends. Every future resolves within its
+   timeout, each utterance decodes 1–16 tokens, K1 32 × each front-end's
+   prefill dispatches or flushes; each record printed.
+11c. ``utils/ablate_step.run`` (``tools/ablate_step.py``) at batch 4,
+   beam 5, fp8 cache, int8 weights, 4 iterations: every row printed; K3
+   32 × the fused row's iterations and K4 2 × the K4 row's, 0 in every
+   other row; the reorders by ``index_select``, K4 (and the int8 product,
+   where ``torch._int_mm`` takes the shape) bitwise equal, the one-hot
+   product equal in value with −0 → +0 its only byte change; one iteration
+   of the fused row held layer by layer against K3's plain version on the
+   same inputs (planes bitwise, attention 4 bf16 ulps).
+
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 """
@@ -3253,6 +3277,142 @@ def phase_native(torch) -> dict:
     return out
 
 
+BENCH_SMOKE = {"batch": 4, "max_new": 32, "repeats": 1}  # phase 11a: utils/bench cut to size
+
+
+def phase_bench(torch, kernels, beam, bench, Monolith, flagship_assets) -> dict:
+    """Phase 11a (docstring): ``utils/bench.run`` on phase 4b's weights,
+    the flagship and then ``BENCH_BEAM=1``."""
+    out = {}
+    for label, beam_size in (("flagship", 5), ("greedy", 1)):
+        k = {**bench.DEFAULTS, **BENCH_SMOKE, "beam": beam_size}
+        cfg = bench.bench_config(k["model"], k["beam"], k["max_new"], k["dtype"], k["lang"], k["quant"],
+                                 k["kv_dtype"], k["ctx_bucket"], k["fused"], k["audio_ctx"])
+        engine = Monolith(flagship_assets, cfg, device="cuda")
+        (record, results), wall, counts = _timed(torch, kernels, beam, lambda: bench.run(**k, engine=engine))
+        encodes = 1 + k["repeats"] + max(k["repeats"], 3)  # warm-up, serialized, pipelined
+        want = {"K1": LARGE_V3_ENC_LAYERS * encodes}
+        if beam_size > 1:
+            if counts["beam_steps"] == 0:
+                fail(f"11a {label}: no beam step ran")
+            want["K2"] = LARGE_V3_DEC_LAYERS * counts["beam_steps"]
+        log(f"  11a {label}: {wall:.1f} s; launches {counts} ({encodes} encodes)")
+        _expect(f"11a {label}", counts, want)
+        plain = engine.transcribe_batch(bench.make_batch(k["batch"], k["audio_seconds"]))
+        for a, b in zip(results, plain):
+            if a.length != b.length or not np.array_equal(a.tokens, b.tokens):
+                fail(f"11a {label}: the bench's last batch differs from a plain transcribe_batch: "
+                     f"{a.tokens[:a.length].tolist()} vs {b.tokens[:b.length].tolist()}")
+        check_results(results, engine, engine.dims.n_vocab)
+        for key in ("mfu", "hbm_utilization"):
+            v = record[key]
+            if v is None or not (np.isfinite(v) and 0 < v <= 1.05):
+                fail(f"11a {label}: {key} = {v}, expected within (0, 1.05]")
+        log(f"  11a {label} record: {json.dumps(record)}")
+        out[label] = {"record": record, "launches": counts}
+    return out
+
+
+def phase_bench_serving(torch, kernels, beam, bench_serving, EncDec, main_assets) -> dict:
+    """Phase 11b (docstring): ``utils/bench_serving.run`` on phase 4's
+    weights, its three front-ends."""
+    flags = {"model": "large-v3", "n": 8, "slots": 4, "prefill_batch": 2, "max_new": 16, "dtype": "bfloat16"}
+    cfg = bench_serving.serving_config(flags["model"], "en", flags["dtype"], flags["max_new"])
+    engine = EncDec(main_assets, cfg, device="cuda")
+    out, wall, counts = _timed(torch, kernels, beam,
+                               lambda: bench_serving.run(**flags, engine=engine))
+    p_len = len(engine._prompt)
+    for name in bench_serving.FRONTENDS:
+        fe = out[name]
+        lens = [r.length - p_len for r in fe["results"]]
+        log(f"  11b {name}: record {json.dumps(fe['record'])}; {fe['dispatches']} prefills or flushes, "
+            f"K1 {fe['k1_launches']}")
+        if fe["dispatches"] == 0 or fe["k1_launches"] != LARGE_V3_ENC_LAYERS * fe["dispatches"]:
+            fail(f"11b {name}: K1 launched {fe['k1_launches']} times over {fe['dispatches']} dispatches")
+        if len(lens) != flags["n"] or not all(1 <= n <= flags["max_new"] for n in lens):
+            fail(f"11b {name}: tokens decoded per utterance {lens}, expected {flags['n']} within [1, 16]")
+        check_results(fe["results"], engine, engine.dims.n_vocab)
+    want = {"K1": sum(out[name]["k1_launches"] for name in bench_serving.FRONTENDS)}
+    log(f"  11b: {wall:.1f} s; launches {counts}; speedup_disagg_vs_continuous "
+        f"{out['speedup_disagg_vs_continuous']:.3f}")
+    _expect("11b", counts, want)
+    return {"records": {name: out[name]["record"] for name in bench_serving.FRONTENDS}, "launches": counts,
+            "k1_per_frontend": {name: out[name]["k1_launches"] for name in bench_serving.FRONTENDS}}
+
+
+ABLATE_SMOKE = ("large-v3", 4, 5, FP8, 4, "int8")  # phase 11c: model, batch, beam, kv, iterations, quant
+
+
+def phase_ablate(torch, kernels, beam, ablate_step, gather_attend) -> dict:
+    """Phase 11c (docstring): ``utils/ablate_step.run`` at large-v3, its
+    reorders against each other and K3's row against its plain version."""
+    model, batch, beam_size, kv, iters, quant = ABLATE_SMOKE
+    ops = ablate_step.make_inputs(model, batch, beam_size, kv, quant, torch.device("cuda"))
+    records, wall, counts = _timed(torch, kernels, beam, lambda: ablate_step.run(
+        model, batch, beam_size, kv, iters, quant, inputs=ops, log=lambda s: log(f"  {s}")))
+    by = {r["row"]: r for r in records}
+    log(f"  11c: {wall:.1f} s; launches {counts}")
+    for name in ("fused", "reorder_k4"):
+        if name not in by:
+            fail(f"11c: the {name} row did not run")
+    for r in records:
+        k3, k4 = r["k3_launches"] or 0, r["k4_launches"] or 0
+        want3 = LARGE_V3_DEC_LAYERS * r["iterations"] if r["row"] == "fused" else 0
+        want4 = 2 * r["iterations"] if r["row"] == "reorder_k4" else 0
+        if (k3, k4) != (want3, want4):
+            fail(f"11c {r['row']}: K3 {k3}, K4 {k4} launches, expected {want3}, {want4}")
+    _expect("11c", counts, {"K3": by["fused"]["k3_launches"], "K4": by["reorder_k4"]["k4_launches"]})
+
+    # The reorders: bitwise equal to each other (launches here are checks, not counted).
+    bk = batch * beam_size
+    rot32 = ((torch.arange(bk, device=ops["ck"].device) + 1) % bk).to(torch.int32)
+    cache = {"k": ops["ck"], "v": ops["cv"]}
+    outs = {"index_select": ablate_step.reorder_index_select(cache, 0, rot32.long()),
+            "one-hot": ablate_step.reorder_onehot(cache, 0, rot32.long()),
+            "K4": ablate_step.reorder_k4(cache, 0, rot32)}
+    if by["reorder_int8"]["not_run"] is None:
+        outs["int8"] = ablate_step.reorder_int8(cache, 0, rot32.long())
+    ref = outs["index_select"]
+    signed_zeros = 0
+    for name, got in outs.items():
+        for n in ("k", "v"):
+            a, b = got[n].view(torch.uint8), ref[n].view(torch.uint8)
+            if name == "one-hot":
+                # x·1 + 0·y turns −0 into +0: equal in value, and in bits but there.
+                diff = a != b
+                signed_zeros += int(diff.sum().item())
+                if not (torch.equal(got[n].float(), ref[n].float()) and bool((b[diff] == 0x80).all())
+                        and bool((a[diff] == 0).all())):
+                    fail(f"11c: the one-hot reorder of {n} differs from index_select's beyond −0 → +0")
+            elif not torch.equal(a, b):
+                fail(f"11c: the {name} reorder of {n} differs from index_select's")
+    log(f"  11c reorders equal to index_select's: {', '.join(outs)} bitwise, but the one-hot product's "
+        f"{signed_zeros} bytes of −0 → +0; int8 product: {by['reorder_int8']['not_run'] or 'run'}")
+
+    # One iteration of the fused row, each layer's K3 call against its plain
+    # version on the same inputs (phase 3's rules: planes bitwise, 4 bf16 ulps).
+    from whisper_tpu_torch.config import MODEL_DIMS
+
+    h, pk, pv = ops["fq0"].clone(), ops["pk"].clone(), ops["pv"].clone()
+    n_head, pos, worst = MODEL_DIMS[model].n_text_head, pk.shape[3] - 1, 0.0
+    for layer in range(pk.shape[1]):
+        rk, rv = pk.clone(), pv.clone()
+        attn, pk, pv = gather_attend.fused_gather_attend(pk, pv, rot32, layer, pos, 0, h, h, h, n_head=n_head)
+        want, rk, rv = gather_attend.fused_gather_attend_reference(rk, rv, rot32, layer, pos, 0, h, h, h,
+                                                                   n_head=n_head)
+        if not (torch.equal(pk.view(torch.uint8), rk.view(torch.uint8))
+                and torch.equal(pv.view(torch.uint8), rv.view(torch.uint8))):
+            fail(f"11c fused row, layer {layer}: K3's planes differ from its plain version's")
+        err = (attn.float() - want.float()).abs().max().item()
+        tol = bf16_tolerance(want.float().abs().max().item())
+        if not err <= tol:
+            fail(f"11c fused row, layer {layer}: attention {err} from the plain version (tolerance {tol})")
+        worst = max(worst, err / tol)
+        h = torch.tanh(attn).to(h.dtype)
+    log(f"  11c fused row: {pk.shape[1]} layers, planes bitwise, attention within {worst:.2f} of the tolerance")
+    return {"rows": records, "launches": counts}
+
+
 @contextlib.contextmanager
 def _torch_defaults(torch):
     """TF32 flags at torch's defaults while the ``with`` lasts (phase 5
@@ -3314,10 +3474,10 @@ def main() -> None:
     t_start = time.perf_counter()
     from whisper_tpu_torch.config import EngineConfig
     from whisper_tpu_torch.decode import beam
-    from whisper_tpu_torch.engine import EngineType, Monolith, create_engine
+    from whisper_tpu_torch.engine import EncDec, EngineType, Monolith, create_engine
     from whisper_tpu_torch.frontend import mel_fused
     from whisper_tpu_torch.ops import attention, build, fp8_upcast, fused_step, gather, gather_attend
-    from whisper_tpu_torch.utils import probe_cross, probe_fused
+    from whisper_tpu_torch.utils import ablate_step, bench, bench_serving, probe_cross, probe_fused
 
     log("[1] card")
     card = card_line()
@@ -3359,6 +3519,7 @@ def main() -> None:
         torch, kernels, beam, EngineConfig, EngineType, create_engine
     )
     phase_quantize_witness(torch, main_engine, beam_engine)
+    main_assets, flagship_assets = main_engine.assets, beam_engine.assets  # phase 11's weights
 
     log("[4c] K3's path: probe_fused at large-v3, batch 4, beam 5, ctx 68, fp8 planes")
     k3["launches"] = phase_probe_fused(torch, kernels, probe_fused)
@@ -3442,8 +3603,25 @@ def main() -> None:
     log(f"native record: {json.dumps(native_rec)}; tensor-parallel record: {json.dumps(tp)}; "
         f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    t11 = time.perf_counter()
+    log("[11a] utils/bench on the flagship (phase 4b's weights): batch 4, 32 tokens, 1 repeat; then BENCH_BEAM=1")
+    bench_rec = phase_bench(torch, kernels, beam, bench, Monolith, flagship_assets)
+    log("[11b] utils/bench_serving: large-v3 greedy bf16 (phase 4's weights), --n 8 --slots 4 "
+        "--prefill-batch 2 --max-new 16, its three front-ends")
+    serving_rec = phase_bench_serving(torch, kernels, beam, bench_serving, EncDec, main_assets)
+    del main_assets, flagship_assets
+    log(f"[11c] utils/ablate_step: {' '.join(str(a) for a in ABLATE_SMOKE)} (model, batch, beam, kv, "
+        "iterations, quant)")
+    ablate_rec = phase_ablate(torch, kernels, beam, ablate_step, gather_attend)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
     names = ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
     for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5, k6)):
+        rec["tools_launches"] = {
+            "11a_flagship": bench_rec["flagship"]["launches"][name],
+            "11a_greedy": bench_rec["greedy"]["launches"][name],
+            "11b": serving_rec["launches"][name], "11c": ablate_rec["launches"][name],
+        }
         rec["options_launches"] = {
             "7a": options["7a"]["launches"][name], "7b": options["7b"]["launches"][name],
             "7c": options["7c"]["launches"][name], "7d_long": options["7d"]["long_launches"][name],

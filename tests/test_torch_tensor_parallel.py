@@ -349,7 +349,14 @@ def test_serving_refuses_a_tensor_parallel_engine():
 
 def test_cli_under_torchrun_on_a_model_axis(weights, files, tmp_path):
     """``--mesh 1,2`` under ``torchrun``: each of the two ranks prints the
-    single-process CLI's transcript of the file."""
+    single-process CLI's transcript of the file.
+
+    The ranks meet on the launcher's c10d store, bound to a port of the
+    kernel's choosing on 127.0.0.1 (``--local-addr``: no host-name lookup
+    for the workers' store address; gloo on the loopback device), and each
+    rank's standard output goes to a file of its own (``--redirects 1``), so
+    that each rank's transcript is read whole rather than as two ranks'
+    writes interleaved on one pipe."""
     import os
     import subprocess
     import sys
@@ -362,9 +369,12 @@ def test_cli_under_torchrun_on_a_model_axis(weights, files, tmp_path):
     args = ["transcribe", files[0], "--checkpoint", ckpt, "--device", "cpu", "--dtype", "float32",
             "--max-new-tokens", "6"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo, GLOO_SOCKET_IFNAME="lo")
+    logs = tmp_path / "ranks"
     out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc-per-node", "2",
+         "--rdzv-backend", "c10d", "--rdzv-endpoint", "127.0.0.1:0", "--local-addr", "127.0.0.1",
+         "--redirects", "1", "--log-dir", str(logs),
          "-m", "whisper_tpu_torch.cli", *args, "--mesh", "1,2"],
         capture_output=True, text=True, timeout=180, cwd=repo, env=env,
     )
@@ -372,7 +382,6 @@ def test_cli_under_torchrun_on_a_model_axis(weights, files, tmp_path):
     single = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.cli", *args],
                             capture_output=True, text=True, timeout=180, cwd=repo, env=env)
     assert single.returncode == 0, single.stderr[-3000:]
-    text = single.stdout.strip()
-    # The two ranks share the pipe: one rank's newline may land after the
-    # other's text, so the check is on the characters, not the lines.
-    assert text and "".join(out.stdout.split()) == "".join((text + text).split())
+    ranks = sorted(logs.glob("*/attempt_0/*/stdout.log"), key=lambda p: p.parent.name)
+    assert [p.parent.name for p in ranks] == ["0", "1"], ranks
+    assert single.stdout.strip() and all(p.read_text() == single.stdout for p in ranks)

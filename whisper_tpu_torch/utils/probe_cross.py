@@ -146,14 +146,14 @@ def make_inputs(model: str, batch: int, beam: int, tk: int, store: torch.dtype, 
     return draw((batch, beam, n_head, dh)), draw(kv_shape).to(store), draw(kv_shape).to(store)
 
 
-def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     """A test's input (numpy in a dtype torch reads, e.g. float32 holding
     JAX's bf16 or fp8 values exactly, or a tensor) in ``dtype`` on ``device``."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     return t.to(device=device, dtype=dtype).contiguous()
 
 
-def _traced_step(step, q: torch.Tensor, top: int = 6):
+def traced_step(step, q, top: int = 6):
     """(q after one ``step``, its device launches, its ``top`` device
     kernels by time as {name: ms}) from a ``torch.profiler`` trace; the
     launches are None where the trace holds no device event."""
@@ -161,7 +161,7 @@ def _traced_step(step, q: torch.Tensor, top: int = 6):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         q = step(q)
-        torch.cuda.synchronize(q.device)
+        torch.cuda.synchronize()
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -204,8 +204,8 @@ def run(
     if inputs is None:
         q, xk, xv = make_inputs(model, batch, beam, tk, store, dev)
     else:
-        q = _as_tensor(inputs[0], torch.bfloat16, dev)
-        xk, xv = (_as_tensor(x, store, dev) for x in inputs[1:])
+        q = as_tensor(inputs[0], torch.bfloat16, dev)
+        xk, xv = (as_tensor(x, store, dev) for x in inputs[1:])
     batch, beam = q.shape[:2]
     tk = xk.shape[-1]
     if xk.shape != (n_layer, batch, n_head, dh, tk) or xv.shape != xk.shape:
@@ -221,7 +221,7 @@ def run(
     per_iter, top = None, None
     for i in range(warmup):
         if dev.type == "cuda" and i == warmup - 1:
-            q, per_iter, top = _traced_step(step, q)
+            q, per_iter, top = traced_step(step, q)
         else:
             q = step(q)
     ms = None
