@@ -56,7 +56,9 @@ from whisper_tpu_torch.models.decoder import (
     plane_cache_from_prefill,
     precompute_cross_kv,
 )
+from whisper_tpu_torch.decode.greedy import all_on_host
 from whisper_tpu_torch.models.params import Params
+from whisper_tpu_torch.utils.profiling import annotate
 
 NEG_INF = -1e30
 MODES = ("off", "hybrid", "lineage")
@@ -325,125 +327,128 @@ def beam_decode(
             logits = rules.apply(logits, tokens, pos, p_len)
         return torch.log_softmax(logits.float(), dim=-1)
 
-    # --- prefill once per utterance (its beams are identical at the
-    # prompt), then fan the cache out to the beam axis ---
-    cache_b = init_kv_cache(dims, b, total_len, dtype=store, device=device, tp=mesh)
-    logits, cache_b = decoder_prefill(
-        params, prompt, cache_b, cross_kv, dims, compute_dtype, tp=mesh
-    )
-    out_extra: Tuple[torch.Tensor, ...] = ()
-    if no_speech is not None:
-        sot_index, nospeech_id = no_speech
-        probs = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
-        out_extra = (probs[:, nospeech_id],)
-    if mode == "hybrid":
-        cache = plane_cache_from_prefill(cache_b, k)
-    else:
-        cache = {n: v.repeat_interleave(k, dim=1) for n, v in cache_b.items()}
-    del cache_b
-
-    tokens_b = torch.full((b, total_len), eot, dtype=torch.long, device=device)
-    tokens_b[:, :p_len] = prompt
-    lp0 = logprobs_of(logits[:, -1, :], tokens_b, p_len)  # [B, V]
-
-    # First expansion: openai's dict dedups the K identical beams to one
-    # candidate set of the top (K+1) tokens; the same selection walk applies.
-    c0_scores, c0_tokens = topk_wide(lp0, k + 1)
-    sel0 = select_candidates(c0_scores, c0_tokens == eot, k)
-    tokens = tokens_b.repeat_interleave(k, dim=0)
-    tokens[:, p_len] = torch.gather(c0_tokens, 1, sel0.act_idx).reshape(bk)
-    scores = sel0.act_scores.reshape(bk)
-    fin_tokens = tokens_b[:, None, :].expand(b, k, total_len)
-    fin = FinishedSet(
-        tokens=fin_tokens.clone(),
-        scores=torch.full((b, k), NEG_INF, dtype=torch.float32, device=device),
-        lengths=torch.full((b, k), p_len + 1, dtype=torch.long, device=device),
-        valid=torch.zeros((b, k), dtype=torch.bool, device=device),
-    )
-    # Prefill EOTs: the prompt plus its terminating EOT (the buffer is
-    # EOT-filled past the prompt already).
-    fin = _insert_finished(fin, fin_tokens, sel0.eot_scores, fin.lengths, sel0.eot_valid)
-
-    base = torch.arange(b, device=device)[:, None] * k
-    cand_src = (torch.arange(k * (k + 1), device=device) // (k + 1))[None, :].expand(b, -1)
-
-    def advance(s_tokens, s_scores, s_fin, lp, pos):
-        """One selection round: openai's candidate walk, finished
-        insertions, continuation gather. Returns (tokens, scores, fin,
-        act_rows), act_rows the [B·K] source-beam permutation."""
-        top_lp, top_tok = topk_wide(lp, k + 1)  # [BK, K+1]
-        cand_scores = (s_scores[:, None] + top_lp).reshape(b, k * (k + 1))
-        cand_tokens = top_tok.reshape(b, k * (k + 1))
-        sel = select_candidates(cand_scores, cand_tokens == eot, k)
-        # Finished insertions: the source beams' buffers already end in the
-        # EOT fill at `pos`, so each is the hypothesis as it is.
-        eot_rows = (base + torch.gather(cand_src, 1, sel.eot_idx)).reshape(bk)
-        s_fin = _insert_finished(
-            s_fin, s_tokens[eot_rows].reshape(b, k, total_len), sel.eot_scores,
-            torch.full((b, k), pos + 1, dtype=torch.long, device=device), sel.eot_valid,
+    with annotate("decode.loop", device=device) as loop:
+        # --- prefill once per utterance (its beams are identical at the
+        # prompt), then fan the cache out to the beam axis ---
+        cache_b = init_kv_cache(dims, b, total_len, dtype=store, device=device, tp=mesh)
+        logits, cache_b = decoder_prefill(
+            params, prompt, cache_b, cross_kv, dims, compute_dtype, tp=mesh
         )
-        # Continuations: gather token buffers by source beam, write the token.
-        act_rows = (base + torch.gather(cand_src, 1, sel.act_idx)).reshape(bk)
-        new_tokens = s_tokens[act_rows]
-        new_tokens[:, pos] = torch.gather(cand_tokens, 1, sel.act_idx).reshape(bk)
-        return new_tokens, sel.act_scores.reshape(bk), s_fin, act_rows
-
-    pos = p_len + 1  # next position to write
-    if mode == "hybrid":
-        parity = 0
-        # Rows within a sample are identical after the fan-out: the first
-        # pending permutation is the identity.
-        pending = torch.arange(row0, row0 + bk, dtype=torch.int32, device=device)
-    elif mode == "lineage":
-        lineage = init_lineage(b, k, total_len, p_len, device=device)
-    else:
-        spare = {n: torch.empty_like(v) for n, v in cache.items()}
-    # Each step decides on the host whether to go on: one small device →
-    # host read per token.
-    while pos < total_len and not bool(fin.valid.all()):
-        prev = tokens[:, pos - 1]
+        out_extra: Tuple[torch.Tensor, ...] = ()
+        if no_speech is not None:
+            sot_index, nospeech_id = no_speech
+            probs = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
+            out_extra = (probs[:, nospeech_id],)
         if mode == "hybrid":
-            logits, cache = decoder_step_fused(
-                params, prev, pos - 1, cache, parity, pending, cross_kv, dims,
-                compute_dtype, beam_width=k, sharded=mesh is not None,
-            )
-        elif mode == "lineage":
-            logits, cache, lineage = decoder_step_lineage(
-                params, prev, pos - 1, cache, lineage, cross_kv, dims, compute_dtype,
-                beam_width=k, tp=mesh,
-            )
+            cache = plane_cache_from_prefill(cache_b, k)
         else:
-            logits, cache = decoder_step(
-                params, prev, pos - 1, cache, cross_kv, dims, compute_dtype, beam_width=k,
-                tp=mesh,
+            cache = {n: v.repeat_interleave(k, dim=1) for n, v in cache_b.items()}
+        del cache_b
+
+        tokens_b = torch.full((b, total_len), eot, dtype=torch.long, device=device)
+        tokens_b[:, :p_len] = prompt
+        lp0 = logprobs_of(logits[:, -1, :], tokens_b, p_len)  # [B, V]
+
+        # First expansion: openai's dict dedups the K identical beams to one
+        # candidate set of the top (K+1) tokens; the same selection walk applies.
+        c0_scores, c0_tokens = topk_wide(lp0, k + 1)
+        sel0 = select_candidates(c0_scores, c0_tokens == eot, k)
+        tokens = tokens_b.repeat_interleave(k, dim=0)
+        tokens[:, p_len] = torch.gather(c0_tokens, 1, sel0.act_idx).reshape(bk)
+        scores = sel0.act_scores.reshape(bk)
+        fin_tokens = tokens_b[:, None, :].expand(b, k, total_len)
+        fin = FinishedSet(
+            tokens=fin_tokens.clone(),
+            scores=torch.full((b, k), NEG_INF, dtype=torch.float32, device=device),
+            lengths=torch.full((b, k), p_len + 1, dtype=torch.long, device=device),
+            valid=torch.zeros((b, k), dtype=torch.bool, device=device),
+        )
+        # Prefill EOTs: the prompt plus its terminating EOT (the buffer is
+        # EOT-filled past the prompt already).
+        fin = _insert_finished(fin, fin_tokens, sel0.eot_scores, fin.lengths, sel0.eot_valid)
+
+        base = torch.arange(b, device=device)[:, None] * k
+        cand_src = (torch.arange(k * (k + 1), device=device) // (k + 1))[None, :].expand(b, -1)
+
+        def advance(s_tokens, s_scores, s_fin, lp, pos):
+            """One selection round: openai's candidate walk, finished
+            insertions, continuation gather. Returns (tokens, scores, fin,
+            act_rows), act_rows the [B·K] source-beam permutation."""
+            top_lp, top_tok = topk_wide(lp, k + 1)  # [BK, K+1]
+            cand_scores = (s_scores[:, None] + top_lp).reshape(b, k * (k + 1))
+            cand_tokens = top_tok.reshape(b, k * (k + 1))
+            sel = select_candidates(cand_scores, cand_tokens == eot, k)
+            # Finished insertions: the source beams' buffers already end in the
+            # EOT fill at `pos`, so each is the hypothesis as it is.
+            eot_rows = (base + torch.gather(cand_src, 1, sel.eot_idx)).reshape(bk)
+            s_fin = _insert_finished(
+                s_fin, s_tokens[eot_rows].reshape(b, k, total_len), sel.eot_scores,
+                torch.full((b, k), pos + 1, dtype=torch.long, device=device), sel.eot_valid,
             )
-        lp = logprobs_of(logits, tokens, pos)
-        tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)
+            # Continuations: gather token buffers by source beam, write the token.
+            act_rows = (base + torch.gather(cand_src, 1, sel.act_idx)).reshape(bk)
+            new_tokens = s_tokens[act_rows]
+            new_tokens[:, pos] = torch.gather(cand_tokens, 1, sel.act_idx).reshape(bk)
+            return new_tokens, sel.act_scores.reshape(bk), s_fin, act_rows
+
+        pos = p_len + 1  # next position to write
         if mode == "hybrid":
-            # Not applied now: the next step's K2 reads through it.
-            parity, pending = 1 - parity, (row0 + act_rows).to(torch.int32)
+            parity = 0
+            # Rows within a sample are identical after the fan-out: the first
+            # pending permutation is the identity.
+            pending = torch.arange(row0, row0 + bk, dtype=torch.int32, device=device)
         elif mode == "lineage":
-            lineage = lineage[act_rows]
+            lineage = init_lineage(b, k, total_len, p_len, device=device)
         else:
-            # The written window [0, pos) moves into the spare buffer.
-            cache, spare = reorder_cache_window(cache, act_rows, bk, pos, out=spare), cache
-        pos += 1
-        steps += 1
+            spare = {n: torch.empty_like(v) for n, v in cache.items()}
+        # Each step decides on the host whether to go on: one small device →
+        # host read per token.
+        while pos < total_len and not all_on_host(fin.valid):
+            with annotate("decode.step"):
+                prev = tokens[:, pos - 1]
+                if mode == "hybrid":
+                    logits, cache = decoder_step_fused(
+                        params, prev, pos - 1, cache, parity, pending, cross_kv, dims,
+                        compute_dtype, beam_width=k, sharded=mesh is not None,
+                    )
+                elif mode == "lineage":
+                    logits, cache, lineage = decoder_step_lineage(
+                        params, prev, pos - 1, cache, lineage, cross_kv, dims, compute_dtype,
+                        beam_width=k, tp=mesh,
+                    )
+                else:
+                    logits, cache = decoder_step(
+                        params, prev, pos - 1, cache, cross_kv, dims, compute_dtype, beam_width=k,
+                        tp=mesh,
+                    )
+                lp = logprobs_of(logits, tokens, pos)
+                tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)
+                if mode == "hybrid":
+                    # Not applied now: the next step's K2 reads through it.
+                    parity, pending = 1 - parity, (row0 + act_rows).to(torch.int32)
+                elif mode == "lineage":
+                    lineage = lineage[act_rows]
+                else:
+                    # The written window [0, pos) moves into the spare buffer.
+                    cache, spare = reorder_cache_window(cache, act_rows, bk, pos, out=spare), cache
+                steps += 1
+            pos += 1
 
-    # --- finalize: pad incomplete finished sets from the active beams in
-    # raw-score order (their buffers already carry the EOT fill) ---
-    pad_scores, pad_beam = _topk_stable(scores.reshape(b, k), k)
-    pad_tokens = tokens[(base + pad_beam).reshape(bk)].reshape(b, k, total_len)
-    fin = _insert_finished(
-        fin, pad_tokens, pad_scores, _lengths_of(pad_tokens, p_len, eot),
-        torch.ones((b, k), dtype=torch.bool, device=device),
-    )
+        # --- finalize: pad incomplete finished sets from the active beams in
+        # raw-score order (their buffers already carry the EOT fill) ---
+        pad_scores, pad_beam = _topk_stable(scores.reshape(b, k), k)
+        pad_tokens = tokens[(base + pad_beam).reshape(bk)].reshape(b, k, total_len)
+        fin = _insert_finished(
+            fin, pad_tokens, pad_scores, _lengths_of(pad_tokens, p_len, eot),
+            torch.ones((b, k), dtype=torch.bool, device=device),
+        )
 
-    # --- rank by normalised score (openai MaximumLikelihoodRanker) ---
-    norm = length_norm(torch.clamp_min(fin.lengths - p_len, 1).float(), length_penalty)
-    norm_scores = torch.where(fin.valid, fin.scores / norm, NEG_INF)
-    best = torch.argmax(norm_scores, dim=1)
-    rows = torch.arange(b, device=device)
-    return (
-        fin.tokens[rows, best], fin.lengths[rows, best], norm_scores[rows, best],
-    ) + out_extra
+        # --- rank by normalised score (openai MaximumLikelihoodRanker) ---
+        norm = length_norm(torch.clamp_min(fin.lengths - p_len, 1).float(), length_penalty)
+        norm_scores = torch.where(fin.valid, fin.scores / norm, NEG_INF)
+        best = torch.argmax(norm_scores, dim=1)
+        rows = torch.arange(b, device=device)
+        best_tokens, best_lengths = fin.tokens[rows, best], fin.lengths[rows, best]
+        best_scores = norm_scores[rows, best]
+        loop.set(steps=pos - p_len - 1)
+    return (best_tokens, best_lengths, best_scores) + out_extra

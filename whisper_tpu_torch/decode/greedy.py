@@ -39,10 +39,18 @@ from whisper_tpu_torch.models.decoder import (
     precompute_cross_kv,
 )
 from whisper_tpu_torch.models.params import Params
+from whisper_tpu_torch.utils.profiling import annotate
 
 # Decode steps run by greedy_decode in this process (the prefill not
 # counted): with the collectives' counts it shows how many ran per step.
 steps = 0
+
+
+def all_on_host(flags: torch.Tensor) -> bool:
+    """Whether every flag is set, read on the host: the decode loop's one
+    wait for the card per step (the span ``decode.sync``)."""
+    with annotate("decode.sync"):
+        return bool(flags.all())
 
 
 def argmax_last(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -109,9 +117,6 @@ def greedy_decode(
     prompt = prompt.to(device=device, dtype=torch.long)
     if cross_kv is None:
         cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh)
-    cache = init_kv_cache(
-        dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device, tp=mesh
-    )
 
     def pick(logits: torch.Tensor, tokens: torch.Tensor, pos: int):
         """Constrained logits → (chosen token [B], its logprob [B] or None)."""
@@ -130,41 +135,50 @@ def greedy_decode(
         lp = torch.log_softmax(logits.float(), dim=-1)
         return choice, lp.gather(-1, choice[:, None])[:, 0]
 
-    logits, cache = decoder_prefill(params, prompt, cache, cross_kv, dims, compute_dtype, tp=mesh)
-    out_extra: Tuple[torch.Tensor, ...] = ()
-    if no_speech is not None:
-        sot_index, nospeech_id = no_speech
-        probs_at_sot = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
-        out_extra = (probs_at_sot[:, nospeech_id],)
-
-    tokens = torch.full((b, total_len), eot, dtype=torch.long, device=device)
-    tokens[:, :p_len] = prompt
-    first, first_lp = pick(logits[:, -1, :], tokens, p_len)
-    tokens[:, p_len] = first
-    finished = first == eot
-    sum_lp = first_lp
-
-    # Each step decides on the host whether to go on: one small device →
-    # host read per token.
-    pos = p_len + 1
-    while pos < total_len and not bool(finished.all()):
-        logits, cache = decoder_step(
-            params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype, tp=mesh
+    with annotate("decode.loop", device=device) as loop:
+        cache = init_kv_cache(
+            dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device, tp=mesh
         )
-        steps += 1
-        nxt, lp = pick(logits, tokens, pos)
-        if return_logprobs:  # frozen rows stop adding
-            sum_lp = sum_lp + torch.where(finished, 0.0, lp)
-        nxt = torch.where(finished, eot, nxt)
-        tokens[:, pos] = nxt
-        finished = finished | (nxt == eot)
-        pos += 1
+        logits, cache = decoder_prefill(
+            params, prompt, cache, cross_kv, dims, compute_dtype, tp=mesh
+        )
+        out_extra: Tuple[torch.Tensor, ...] = ()
+        if no_speech is not None:
+            sot_index, nospeech_id = no_speech
+            probs_at_sot = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
+            out_extra = (probs_at_sot[:, nospeech_id],)
 
-    # Length = index of first EOT at/after the prompt, +1 to include it.
-    is_eot = tokens[:, p_len:] == eot
-    any_eot = is_eot.any(dim=1)
-    first_eot = torch.argmax(is_eot.to(torch.int8), dim=1)
-    lengths = torch.where(any_eot, p_len + first_eot + 1, total_len)
-    if return_logprobs:
-        out_extra = (sum_lp,) + out_extra
+        tokens = torch.full((b, total_len), eot, dtype=torch.long, device=device)
+        tokens[:, :p_len] = prompt
+        first, first_lp = pick(logits[:, -1, :], tokens, p_len)
+        tokens[:, p_len] = first
+        finished = first == eot
+        sum_lp = first_lp
+
+        # Each step decides on the host whether to go on: one small device →
+        # host read per token.
+        pos = p_len + 1
+        while pos < total_len and not all_on_host(finished):
+            with annotate("decode.step"):
+                logits, cache = decoder_step(
+                    params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype,
+                    tp=mesh,
+                )
+                steps += 1
+                nxt, lp = pick(logits, tokens, pos)
+                if return_logprobs:  # frozen rows stop adding
+                    sum_lp = sum_lp + torch.where(finished, 0.0, lp)
+                nxt = torch.where(finished, eot, nxt)
+                tokens[:, pos] = nxt
+                finished = finished | (nxt == eot)
+            pos += 1
+
+        # Length = index of first EOT at/after the prompt, +1 to include it.
+        is_eot = tokens[:, p_len:] == eot
+        any_eot = is_eot.any(dim=1)
+        first_eot = torch.argmax(is_eot.to(torch.int8), dim=1)
+        lengths = torch.where(any_eot, p_len + first_eot + 1, total_len)
+        if return_logprobs:
+            out_extra = (sum_lp,) + out_extra
+        loop.set(steps=pos - p_len - 1)
     return (tokens, lengths) + out_extra

@@ -58,6 +58,12 @@ its slice from the start (``utils/checkpoint.load_params`` with the mesh;
 every rank, as in JAX. ``transcribe_files`` reads on each data rank only
 its files (with the native loader when it is built, ``native/``).
 
+Each batch records spans (``utils/profiling``) while a profiler session
+has started: a root ``engine.batch`` with its number as the trace id, over
+``engine.prepare``, ``engine.encode`` and ``decode.prompts`` (both timed
+on the card too), the decode loop's spans, ``engine.fetch`` and
+``engine.results``.
+
 Entry points take ``device=`` and default to ``"cuda"``: asking for CUDA
 where there is none raises, and the CPU runs only when asked for.
 """
@@ -82,6 +88,8 @@ from whisper_tpu_torch.decode.align import (
     heads_to_mask,
     words_from_alignment,
 )
+from whisper_tpu_torch.decode import beam as beam_mod
+from whisper_tpu_torch.decode import greedy as greedy_mod
 from whisper_tpu_torch.decode.beam import beam_decode
 from whisper_tpu_torch.decode.fallback import compression_ratio, needs_fallback, normalize_schedule
 from whisper_tpu_torch.decode.greedy import greedy_decode
@@ -113,7 +121,15 @@ from whisper_tpu_torch.tokenizer.bpe import encode_initial_prompt
 from whisper_tpu_torch.tokenizer.detokenize import decode_tokens, remove_extra_spaces
 from whisper_tpu_torch.tokenizer.languages import lang_code
 from whisper_tpu_torch.tokenizer.vocab import Vocab, num_languages_for
-from whisper_tpu_torch.utils.profiling import StageTimer, Throughput
+from whisper_tpu_torch.utils.profiling import (
+    StageTimer,
+    Throughput,
+    annotate,
+    next_number,
+    next_span_id,
+    record,
+    scope,
+)
 
 
 def _samples_f32(x: torch.Tensor) -> torch.Tensor:
@@ -159,6 +175,12 @@ class LongTranscriptionResult:
     text: str
     offsets: List[float]
     chunks: List[TranscriptionResult]
+
+
+def decode_steps() -> int:
+    """Single-token decode steps run in this process, beam and greedy
+    (``decode.beam.steps`` + ``decode.greedy.steps``)."""
+    return beam_mod.steps + greedy_mod.steps
 
 
 def batch_bucket(b: int) -> int:
@@ -408,8 +430,13 @@ class Engine:
             (self._draft_params, self._draft_dims, self._draft_filters) if draft
             else (self.assets.params, self.dims, self._filters)
         )
-        mel = log_mel_spectrogram(samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32)
-        enc_out = encode(params, mel.to(self._compute_dtype), dims, tp=None if draft else self.mesh)
+        with annotate("engine.encode", device=samples.device, rows=samples.shape[0]):
+            mel = log_mel_spectrogram(
+                samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32
+            )
+            enc_out = encode(
+                params, mel.to(self._compute_dtype), dims, tp=None if draft else self.mesh
+            )
         if audio_ctx is not None and audio_ctx < enc_out.shape[1]:
             enc_out = enc_out[:, :audio_ctx]
         return enc_out
@@ -421,22 +448,23 @@ class Engine:
         with the decode. ``params`` are the engine's, or their replica on
         a disaggregated encoder's device."""
         b = enc_out.shape[0]
-        prompts = self._prompt_on(enc_out.device)[None, :].repeat(b, 1)
-        if not self._autodetect:
-            return prompts, None
-        cross_kv = precompute_cross_kv(
-            params, enc_out, self.dims, kv_dtype=self._kv_dtype, tp=self.mesh
-        )
-        lang_toks = detect_language_tokens(
-            params,
-            enc_out,
-            self.dims,
-            sot=self.vocab.specials.sot,
-            compute_dtype=self._compute_dtype,
-            cross_kv=cross_kv,
-            tp=self.mesh,
-        )
-        prompts[:, self._sot_index + 1] = lang_toks
+        with annotate("decode.prompts", device=enc_out.device):
+            prompts = self._prompt_on(enc_out.device)[None, :].repeat(b, 1)
+            if not self._autodetect:
+                return prompts, None
+            cross_kv = precompute_cross_kv(
+                params, enc_out, self.dims, kv_dtype=self._kv_dtype, tp=self.mesh
+            )
+            lang_toks = detect_language_tokens(
+                params,
+                enc_out,
+                self.dims,
+                sot=self.vocab.specials.sot,
+                compute_dtype=self._compute_dtype,
+                cross_kv=cross_kv,
+                tp=self.mesh,
+            )
+            prompts[:, self._sot_index + 1] = lang_toks
         return prompts, cross_kv
 
     def _prompt_on(self, device: torch.device) -> torch.Tensor:
@@ -548,13 +576,14 @@ class Engine:
         """Device → host, across the ranks on a mesh: every rank ends up with
         every rank's rows, in rank order. Token ids and lengths come back as
         int32, as in JAX."""
-        host = [
-            None if x is None else (x.int() if not x.is_floating_point() else x).cpu().numpy()
-            for x in outs
-        ]
-        if self.mesh is None:
-            return host
-        return [None if x is None else allgather_rows(x, self.mesh) for x in host]
+        with annotate("engine.fetch"):
+            host = [
+                None if x is None else (x.int() if not x.is_floating_point() else x).cpu().numpy()
+                for x in outs
+            ]
+            if self.mesh is None:
+                return host
+            return [None if x is None else allgather_rows(x, self.mesh) for x in host]
 
     # --- host side ---------------------------------------------------------
     def _prepare_batch(self, samples: np.ndarray):
@@ -634,79 +663,93 @@ class Engine:
         ``batch_bucket`` sub-batch, whose "auto" crop is its own, and the
         last attempt is kept even if it still fails. With word timestamps,
         one alignment forward runs on the final tokens."""
-        batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
-        ac = self._resolve_audio_ctx(batch)
-        primary_t = self._schedule[0] if self._sampling_primary else None
-        tokens, lengths, avg_lp, nsp, mel_ms, model_ms, enc_out = self._run(
-            self._local(batch), ac, temperature=primary_t,
-            generator=None if primary_t is None else self._generator(0),
-        )
-        # Writable copies: the retries patch rows in place.
-        tokens, lengths = np.array(tokens), np.array(lengths)
-        avg_lp = None if avg_lp is None else np.array(avg_lp)
-        nsp = None if nsp is None else np.array(nsp)
-        temps = np.full(batch.shape[0], self._schedule[0], np.float64)
-
-        pending = self._failing(tokens, lengths, avg_lp, range(b))
-        for attempt, temp in enumerate(self._schedule[1:], start=1):
-            if not pending:
-                break
-            sub = np.zeros((self._bucket(len(pending)), N_SAMPLES), dtype=batch.dtype)
-            sub[: len(pending)] = batch[pending]
-            r_tok, r_len, r_lp, r_nsp, _, r_ms, _ = self._run(
-                self._local(sub), self._resolve_audio_ctx(sub), temperature=temp,
-                generator=self._generator(attempt),
+        with annotate("engine.batch", trace_id=next_number()) as root:
+            with annotate("engine.prepare"):
+                batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
+                ac = self._resolve_audio_ctx(batch)
+            steps0 = decode_steps()
+            primary_t = self._schedule[0] if self._sampling_primary else None
+            local = self._local(batch)
+            encoder_rows = local.shape[0]
+            tokens, lengths, avg_lp, nsp, mel_ms, model_ms, enc_out = self._run(
+                local, ac, temperature=primary_t,
+                generator=None if primary_t is None else self._generator(0),
             )
-            model_ms += r_ms
-            # The retry also refreshes no_speech_prob (the prefill does not
-            # depend on the temperature; kept in step with openai's result).
-            for j, i in enumerate(pending):
-                tokens[i], lengths[i] = r_tok[j], r_len[j]
-                avg_lp[i] = r_lp[j]
-                if nsp is not None:
-                    nsp[i] = r_nsp[j]
-                temps[i] = temp
-            pending = self._failing(tokens, lengths, avg_lp, pending)
+            with annotate("engine.results"):
+                # Writable copies: the retries patch rows in place.
+                tokens, lengths = np.array(tokens), np.array(lengths)
+                avg_lp = None if avg_lp is None else np.array(avg_lp)
+                nsp = None if nsp is None else np.array(nsp)
+                temps = np.full(batch.shape[0], self._schedule[0], np.float64)
+                pending = self._failing(tokens, lengths, avg_lp, range(b))
 
-        words = [None] * b
-        align_ms = 0.0
-        if self._align_mask is not None:
-            t0 = time.perf_counter()
-            matrix = self._alignment(enc_out, tokens)
-            t1 = time.perf_counter()
-            n_frames = max(2, (n // 160) // 2)  # valid encoder positions
-            if ac is not None:
-                n_frames = min(n_frames, ac)
-            for i in range(b):
-                words[i] = words_from_alignment(
-                    self.vocab, tokens[i], int(lengths[i]), len(self._prompt), matrix[i],
-                    n_frames=n_frames,
+            for attempt, temp in enumerate(self._schedule[1:], start=1):
+                if not pending:
+                    break
+                sub = np.zeros((self._bucket(len(pending)), N_SAMPLES), dtype=batch.dtype)
+                sub[: len(pending)] = batch[pending]
+                local = self._local(sub)
+                encoder_rows += local.shape[0]
+                r_tok, r_len, r_lp, r_nsp, _, r_ms, _ = self._run(
+                    local, self._resolve_audio_ctx(sub), temperature=temp,
+                    generator=self._generator(attempt),
                 )
-            align_ms = (time.perf_counter() - t0) * 1e3
-            self.timer.record("align", t1 - t0)
-            self.timer.record("dtw", time.perf_counter() - t1)
-        del enc_out
+                with annotate("engine.results"):
+                    model_ms += r_ms
+                    # The retry also refreshes no_speech_prob (the prefill does not
+                    # depend on the temperature; kept in step with openai's result).
+                    for j, i in enumerate(pending):
+                        tokens[i], lengths[i] = r_tok[j], r_len[j]
+                        avg_lp[i] = r_lp[j]
+                        if nsp is not None:
+                            nsp[i] = r_nsp[j]
+                        temps[i] = temp
+                    pending = self._failing(tokens, lengths, avg_lp, pending)
 
-        if mel_ms:
-            self.timer.record("mel", mel_ms / 1e3)
-        self.timer.record("model", model_ms / 1e3)
-        self.throughput.add(
-            audio_seconds=b * (n / 16_000.0),
-            tokens=int(np.sum(lengths[:b])),
-            utterances=b,
-            wall_s=((mel_ms or 0.0) + model_ms + align_ms) / 1e3,
-        )
-        return [
-            self.result_from_tokens(
-                tokens[i], int(lengths[i]), omit_special_tokens,
-                mel_ms=mel_ms, model_ms=model_ms,
-                no_speech_prob=None if nsp is None else float(nsp[i]),
-                avg_logprob=None if avg_lp is None else float(avg_lp[i]),
-                temperature=float(temps[i]) if self._sampling_on else None,
-                words=words[i],
-            )
-            for i in range(b)
-        ]
+            words = [None] * b
+            align_ms = 0.0
+            if self._align_mask is not None:
+                t0 = time.perf_counter()
+                matrix = self._alignment(enc_out, tokens)
+                t1 = time.perf_counter()
+                n_frames = max(2, (n // 160) // 2)  # valid encoder positions
+                if ac is not None:
+                    n_frames = min(n_frames, ac)
+                for i in range(b):
+                    words[i] = words_from_alignment(
+                        self.vocab, tokens[i], int(lengths[i]), len(self._prompt), matrix[i],
+                        n_frames=n_frames,
+                    )
+                align_ms = (time.perf_counter() - t0) * 1e3
+                self.timer.record("align", t1 - t0)
+                self.timer.record("dtw", time.perf_counter() - t1)
+            del enc_out
+
+            with annotate("engine.results"):
+                if mel_ms:
+                    self.timer.record("mel", mel_ms / 1e3)
+                self.timer.record("model", model_ms / 1e3)
+                self.throughput.add(
+                    audio_seconds=b * (n / 16_000.0),
+                    tokens=int(np.sum(lengths[:b])),
+                    utterances=b,
+                    wall_s=((mel_ms or 0.0) + model_ms + align_ms) / 1e3,
+                )
+                results = [
+                    self.result_from_tokens(
+                        tokens[i], int(lengths[i]), omit_special_tokens,
+                        mel_ms=mel_ms, model_ms=model_ms,
+                        no_speech_prob=None if nsp is None else float(nsp[i]),
+                        avg_logprob=None if avg_lp is None else float(avg_lp[i]),
+                        temperature=float(temps[i]) if self._sampling_on else None,
+                        words=words[i],
+                    )
+                    for i in range(b)
+                ]
+            root.set(rows=b, padded_rows=batch.shape[0],
+                     audio_ctx=self.dims.n_audio_ctx if ac is None else ac,
+                     steps=decode_steps() - steps0, encoder_rows=encoder_rows)
+        return results
 
     def _local(self, batch: np.ndarray) -> np.ndarray:
         """This rank's rows of a global host batch (all of it off a mesh)."""
@@ -1193,18 +1236,24 @@ class Monolith(Engine):
 
     def _stream_stage(self, stream: "_BatchStream", samples: np.ndarray) -> dict:
         """One batch on the host (pad, bucket, its "auto" crop) and its copy
-        to the device on the copy stream. Its dispatch time starts here."""
-        batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
-        ac = self._resolve_audio_ctx(batch)
+        to the device on the copy stream. Its dispatch time starts here, and
+        its root span (``engine.batch``, recorded by :meth:`_stream_results`):
+        each step of the batch runs in the root's :func:`scope`."""
+        trace = (next_number(), next_span_id())
+        start_ns = time.time_ns()
+        with scope(*trace), annotate("engine.prepare"):
+            batch, b, n = self._prepare_batch(np.asarray(samples, dtype=np.float32))
+            ac = self._resolve_audio_ctx(batch)
         t0 = time.perf_counter()
         x, copied = stream.stage(batch)
-        return dict(b=b, n=n, audio_ctx=ac, t0=t0, samples=x, copied=copied)
+        return dict(b=b, n=n, audio_ctx=ac, t0=t0, samples=x, copied=copied, trace=trace,
+                    start_ns=start_ns, padded=batch.shape[0])
 
     def _stream_encode(self, stream: "_BatchStream", job: dict) -> dict:
         """Enqueue one staged batch's encode on the encode stream: its
         samples to f32, log-mel and encoder (and a draft's own), the prompts
         with language detection and the cross-KV. Makes no host sync."""
-        with stream.on(stream.encode):
+        with scope(*job["trace"]), stream.on(stream.encode):
             stream.wait(stream.encode, job.pop("copied"))
             samples = job.pop("samples")
             stream.hand_over(samples, stream.encode)
@@ -1225,10 +1274,13 @@ class Monolith(Engine):
         """Decode one encoded batch on the current stream, behind its encode
         event, and start its outputs' copy to the host behind an event."""
         stream.wait(stream.decode, job.pop("encoded"))
-        outs = self._decode(
-            job.pop("enc_out"), draft_enc=job.pop("draft_enc"),
-            prompts=(job.pop("prompts"), job.pop("cross_kv")),
-        )
+        steps0 = decode_steps()
+        with scope(*job["trace"]):
+            outs = self._decode(
+                job.pop("enc_out"), draft_enc=job.pop("draft_enc"),
+                prompts=(job.pop("prompts"), job.pop("cross_kv")),
+            )
+        job["steps"] = decode_steps() - steps0
         job["host"], job["fetched"] = stream.to_host(outs)
         return job
 
@@ -1237,24 +1289,34 @@ class Monolith(Engine):
         throughput, and build its results."""
         if job["fetched"] is not None:
             job["fetched"].synchronize()
-        tokens, lengths, avg_lp, nsp = (None if x is None else x.numpy() for x in job["host"])
-        b, n = job["b"], job["n"]
-        dt = (time.perf_counter() - job["t0"]) * 1e3
-        self.timer.record("model", dt / 1e3)
-        self.throughput.add(
-            audio_seconds=b * (n / 16_000.0),
-            tokens=int(np.sum(lengths[:b])),
-            utterances=b,
-            wall_s=dt / 1e3,
-        )
-        return [
-            self.result_from_tokens(
-                tokens[i], int(lengths[i]), omit_special_tokens, model_ms=dt,
-                avg_logprob=None if avg_lp is None else float(avg_lp[i]),
-                no_speech_prob=None if nsp is None else float(nsp[i]),
+        with scope(*job["trace"]), annotate("engine.results"):
+            tokens, lengths, avg_lp, nsp = (
+                None if x is None else x.numpy() for x in job["host"]
             )
-            for i in range(b)
-        ]
+            b, n = job["b"], job["n"]
+            dt = (time.perf_counter() - job["t0"]) * 1e3
+            self.timer.record("model", dt / 1e3)
+            self.throughput.add(
+                audio_seconds=b * (n / 16_000.0),
+                tokens=int(np.sum(lengths[:b])),
+                utterances=b,
+                wall_s=dt / 1e3,
+            )
+            results = [
+                self.result_from_tokens(
+                    tokens[i], int(lengths[i]), omit_special_tokens, model_ms=dt,
+                    avg_logprob=None if avg_lp is None else float(avg_lp[i]),
+                    no_speech_prob=None if nsp is None else float(nsp[i]),
+                )
+                for i in range(b)
+            ]
+        number, root = job["trace"]
+        ac = job["audio_ctx"]
+        record("engine.batch", job["start_ns"], time.time_ns(), trace_id=number, span_id=root,
+               rows=b, padded_rows=job["padded"],
+               audio_ctx=self.dims.n_audio_ctx if ac is None else ac,
+               steps=job["steps"], encoder_rows=job["padded"])
+        return results
 
 
 class _BatchStream:

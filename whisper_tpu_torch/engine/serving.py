@@ -25,6 +25,11 @@ each dispatch, copied to pinned host memory behind a CUDA event: the host
 waits for that copy only, one macro-step late, never for the step it has
 just enqueued.
 
+The slot pools record spans (``utils/profiling``): ``serve.queue`` and
+``serve.slot`` under each request's number (given at submit), and the
+worker's ``serve.prefill``, ``serve.macro_step``, ``serve.harvest`` and
+its wait for the card, ``serve.sync``.
+
 Threads share the card's default stream, so the disaggregated encode and
 decode threads need no cross-stream synchronisation: a pack is enqueued
 before the decode thread can see it. The listener callbacks mirror the
@@ -59,6 +64,7 @@ from whisper_tpu_torch.engine.engine import (
 from whisper_tpu_torch.frontend.mel import log_mel_spectrogram
 from whisper_tpu_torch.models.encoder import encode
 from whisper_tpu_torch.models.params import to_device
+from whisper_tpu_torch.utils.profiling import annotate, next_number, record, recording
 
 # Status strings kept from the reference (Whisper.java:12-14).
 MSG_PROCESSING = "Processing..."
@@ -82,6 +88,8 @@ def refuse_tensor_parallel(engine: Engine, name: str) -> None:
 class _Request:
     samples: np.ndarray
     future: Future
+    number: int = 0  # the request's trace id (utils/profiling.next_number)
+    submitted_ns: int = 0  # time.time_ns() at submit
 
 
 class AsyncTranscriber:
@@ -348,6 +356,9 @@ class _ContinuousBase:
         self._occupied_slot_steps = 0
         self._dispatched_slot_steps = 0
         self._prefill_dispatches = 0
+        # While spans are recorded: each occupied slot's future → (its
+        # request's number, time.time_ns() at insert), for ``serve.slot``.
+        self._inserted: dict = {}
 
     # --- device work -------------------------------------------------------
     def _prefill(self, samples: np.ndarray) -> cont.SlotPack:
@@ -397,6 +408,27 @@ class _ContinuousBase:
             torch.cuda.synchronize(self._device)
 
     @property
+    def occupied_slot_steps(self) -> int:
+        """Slot-steps run on occupied slots (each macro-step adds its
+        occupied slots)."""
+        return self._occupied_slot_steps
+
+    @property
+    def dispatched_slot_steps(self) -> int:
+        """Slot-steps dispatched (each macro-step adds its bucket)."""
+        return self._dispatched_slot_steps
+
+    @property
+    def step_dispatches(self) -> int:
+        """Macro-steps dispatched."""
+        return self._step_dispatches
+
+    @property
+    def prefill_dispatches(self) -> int:
+        """Prefill groups dispatched."""
+        return self._prefill_dispatches
+
+    @property
     def occupancy(self) -> float:
         """Mean fraction of the FULL pool occupied across macro-steps
         (sizing signal: persistently low values mean a smaller ``n_slots``
@@ -430,38 +462,52 @@ class _ContinuousBase:
         return active, tokens, event
 
     def _dispatch_step(self) -> None:
-        occupied = [i for i, f in enumerate(self._slot_futures) if f is not None]
-        bucket = next(b for b in self._buckets if b >= len(occupied))
-        if occupied and occupied[-1] >= bucket:
-            # Compact: move the occupied slots stranded above the bucket
-            # boundary down into free rows below it (harvest freed them).
-            high = [i for i in occupied if i >= bucket]
-            low_free = [
-                i for i, f in enumerate(self._slot_futures[:bucket]) if f is None
-            ]
-            for src, dst in zip(sorted(high, reverse=True), low_free):
-                cont.move_slot(self._state, src, dst)
-                self._slot_futures[dst] = self._slot_futures[src]
-                self._slot_futures[src] = None
-        self._step_dispatches += 1
-        self._occupied_slot_steps += len(occupied)
-        self._dispatched_slot_steps += bucket
-        # Snapshot the harvest inputs (post-compaction, pre-step), with the
-        # future list BY IDENTITY: a request inserted into a freed slot after
-        # this snapshot must not be harvested against it (the slot reads
-        # inactive with the previous occupant's tokens).
-        self._pending_harvest = (*self._snapshot(), list(self._slot_futures))
-        self._step_bucket(bucket)
+        with annotate("serve.macro_step") as span:
+            occupied = [i for i, f in enumerate(self._slot_futures) if f is not None]
+            bucket = next(b for b in self._buckets if b >= len(occupied))
+            span.set(occupied=len(occupied), bucket=bucket)
+            if occupied and occupied[-1] >= bucket:
+                # Compact: move the occupied slots stranded above the bucket
+                # boundary down into free rows below it (harvest freed them).
+                high = [i for i in occupied if i >= bucket]
+                low_free = [
+                    i for i, f in enumerate(self._slot_futures[:bucket]) if f is None
+                ]
+                for src, dst in zip(sorted(high, reverse=True), low_free):
+                    cont.move_slot(self._state, src, dst)
+                    self._slot_futures[dst] = self._slot_futures[src]
+                    self._slot_futures[src] = None
+            self._step_dispatches += 1
+            self._occupied_slot_steps += len(occupied)
+            self._dispatched_slot_steps += bucket
+            # Snapshot the harvest inputs (post-compaction, pre-step), with the
+            # future list BY IDENTITY: a request inserted into a freed slot after
+            # this snapshot must not be harvested against it (the slot reads
+            # inactive with the previous occupant's tokens).
+            self._pending_harvest = (*self._snapshot(), list(self._slot_futures))
+            self._step_bucket(bucket)
 
     def _run_prefill(self, group: List[_Request]) -> cont.SlotPack:
         """One fixed-shape prefill dispatch for ≤ prefill_batch requests, on
-        the encode device."""
-        samples = np.zeros((self.prefill_batch, N_SAMPLES), np.float32)
-        for i, r in enumerate(group):
-            n = min(len(r.samples), N_SAMPLES)
-            samples[i, :n] = r.samples[:n]
-        self._prefill_dispatches += 1
-        return self._prefill(samples)
+        the encode device. Each request's wait ends here (``serve.queue``)."""
+        now = time.time_ns()
+        for r in group:
+            record("serve.queue", r.submitted_ns, now, trace_id=r.number)
+        with annotate("serve.prefill", trace_id=group[0].number, group=len(group),
+                      first=group[0].number):
+            samples = np.zeros((self.prefill_batch, N_SAMPLES), np.float32)
+            for i, r in enumerate(group):
+                n = min(len(r.samples), N_SAMPLES)
+                samples[i, :n] = r.samples[:n]
+            self._prefill_dispatches += 1
+            return self._prefill(samples)
+
+    def _insert(self, slot: int, pack: cont.SlotPack, row: int, request: _Request) -> None:
+        """Row ``row`` of a prefilled pack into slot ``slot``, for ``request``."""
+        cont.insert_slot(self._state, slot, pack, row)
+        self._slot_futures[slot] = request.future
+        if recording():
+            self._inserted[request.future] = (request.number, time.time_ns())
 
     def _free_slots(self) -> List[int]:
         return [i for i, f in enumerate(self._slot_futures) if f is None]
@@ -476,37 +522,45 @@ class _ContinuousBase:
         copy, not for the step in flight."""
         if self._pending_harvest is None:
             return
-        snap_active, snap_tokens, event, snap_futs = self._pending_harvest
-        if event is not None:
-            event.synchronize()
-        active = snap_active.numpy()
-        done = [
-            i for i, f in enumerate(self._slot_futures)
-            if f is not None and snap_futs[i] is f and not active[i]
-        ]
-        if not done:
-            return
-        lengths = cont.harvest_lengths(snap_tokens, self._p_len, self._eot).numpy()
-        tokens = snap_tokens.numpy().astype(np.int32)
-        for i in done:
-            fut = self._slot_futures[i]
-            self._slot_futures[i] = None
-            try:
-                fut.set_result(
-                    self.engine.result_from_tokens(
-                        tokens[i], int(lengths[i]), self.omit_special_tokens
+        with annotate("serve.harvest") as span:
+            snap_active, snap_tokens, event, snap_futs = self._pending_harvest
+            if event is not None:
+                with annotate("serve.sync"):
+                    event.synchronize()
+            active = snap_active.numpy()
+            done = [
+                i for i, f in enumerate(self._slot_futures)
+                if f is not None and snap_futs[i] is f and not active[i]
+            ]
+            span.set(done=len(done))
+            if not done:
+                return
+            lengths = cont.harvest_lengths(snap_tokens, self._p_len, self._eot).numpy()
+            tokens = snap_tokens.numpy().astype(np.int32)
+            for i in done:
+                fut = self._slot_futures[i]
+                self._slot_futures[i] = None
+                inserted = self._inserted.pop(fut, None)
+                try:
+                    fut.set_result(
+                        self.engine.result_from_tokens(
+                            tokens[i], int(lengths[i]), self.omit_special_tokens
+                        )
                     )
-                )
-            except Exception as e:  # noqa: BLE001
-                if not fut.done():
-                    fut.set_exception(e)
+                except Exception as e:  # noqa: BLE001
+                    if not fut.done():
+                        fut.set_exception(e)
+                if inserted is not None:
+                    record("serve.slot", inserted[1], time.time_ns(), trace_id=inserted[0])
 
     # --- public API --------------------------------------------------------
     def submit(self, samples: np.ndarray) -> Future:
         if self._closed:
             raise RuntimeError("transcriber is closed")
         fut: Future = Future()
-        self._queue.put(_Request(np.asarray(samples, np.float32), fut))
+        self._queue.put(
+            _Request(np.asarray(samples, np.float32), fut, next_number(), time.time_ns())
+        )
         return fut
 
     def transcribe(self, samples: np.ndarray) -> TranscriptionResult:
@@ -569,9 +623,7 @@ class ContinuousTranscriber(_ContinuousBase):
             try:
                 pack = self._run_prefill(group)
                 for i, r in enumerate(group):
-                    slot = free[i]
-                    cont.insert_slot(self._state, slot, pack, i)
-                    self._slot_futures[slot] = r.future
+                    self._insert(free[i], pack, i, r)
             except Exception as e:  # noqa: BLE001 — per-group error isolation
                 for r in group:
                     if not r.future.done():
@@ -704,9 +756,7 @@ class DisaggregatedTranscriber(_ContinuousBase):
             if not free:
                 return True  # slots full; retry after stepping/harvesting
             while row < len(group) and free:
-                slot = free.pop(0)
-                cont.insert_slot(self._state, slot, pack, row)
-                self._slot_futures[slot] = group[row].future
+                self._insert(free.pop(0), pack, row, group[row])
                 row += 1
             if row < len(group):
                 self._pending_pack = (group, pack, row)

@@ -19,7 +19,8 @@ has been run on.
 Counts, read by tests and ``chip_smoke.py`` as the kernels' ``launches``
 are: :data:`calls` (every collective of this process), :data:`by_stage`
 (the same, by the outermost :func:`stage` open at the call: "encode",
-"detect", "prefill", "step", "window", "align") and :data:`host_seconds`
+"detect", "prefill", "step", "window", "align"; each stage is also a
+span of ``utils/profiling``) and :data:`host_seconds`
 (wall time from the staging copy out to the copy back, with the card's
 queue drained before the clock starts, so the work queued before the
 collective is not charged to it).
@@ -33,6 +34,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+from whisper_tpu_torch.utils.profiling import annotate
 
 calls = 0
 by_stage: Dict[str, int] = {}
@@ -51,13 +54,16 @@ def reset() -> None:
 def stage(name: str):
     """Count the collectives made while the ``with`` lasts under ``name``,
     unless an outer stage is open (language detection runs a prefill: its
-    collectives count as "detect")."""
+    collectives count as "detect"). While spans are recorded, the stage is
+    also a span named ``name`` (``utils/profiling.annotate``), inner stages
+    included."""
     global _stage
     outer = _stage
     if outer is None:
         _stage = name
     try:
-        yield
+        with annotate(name):
+            yield
     finally:
         _stage = outer
 
