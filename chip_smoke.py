@@ -41,7 +41,12 @@ Phases, in order; any failure exits non-zero before the last line:
    every bf16 and f16 pattern and f32 edge values; K2 over pos 35, 100,
    200 and 440 of the flagship's full 448-token context, on fp8 planes (bf16
    rows and rows already in fp8) and on bf16 planes (bf16 rows, the
-   default config's cache); K3 over the same points beside K2, checked
+   default config's cache); K2 reading its position from an int64 on the
+   card (a captured decode step's form) at the flagship's planes [2, 32,
+   80, 228, 1280] fp8 with bf16 rows, launched directly and replayed from
+   two captured graphs (one per read parity) while the position advances,
+   bitwise at each position and both parities, one kernel per call and
+   per replay (profiler), timed beside the launch-argument form; K3 over the same points beside K2, checked
    against its plain version at each. K6 (``ops/fp8_upcast``) bitwise, NaN
    codes NaN: all 256 codes of float8_e4m3fn and float8_e5m2, one layer's
    plane of the cross probe's defaults [20480, 1500] (timed beside
@@ -61,7 +66,9 @@ Phases, in order; any failure exits non-zero before the last line:
 4b. Beam main path at full width: the same with ``beam_size=5,
    quantization="int8", kv_cache_dtype="float8_e4m3fn"`` and
    ``fused_step`` left at "auto" (K2's "hybrid" on the card): K2 must run
-   once per decoder layer of every decode step, K3, K4 and K5 never. Then
+   once per decoder layer of every decode step, K3, K4 and K5 never; in
+   one more decode, whose steps are all graph replays, K2's kernels
+   counted in a profiler trace must be 32 per step and equal the count. Then
    ``fused_step="off"`` on the same weights: K4 twice per step (K and V),
    K2 never, and tokens equal to the hybrid run's (the two modes run the
    same arithmetic on the same bytes). The roofline line as in phase 4.
@@ -683,6 +690,98 @@ def k2_bound_ms(hd, isz, row_isz, n_src, bk, pos) -> float:
     return bytes_bound_ms(2 * hd * (isz * (n_src * pos + bk * (pos + 1)) + row_isz * bk))
 
 
+FLAGSHIP_PLANES = (2, 32, 80, 228, 1280)  # large-v3 batch 16 × beam 5, a 4-token prompt + 224 tokens
+DEVICE_POS_RUNS = ((0, 4), (111, 3), (224, 4))  # (first position, steps): both parities, up to ctx - 1
+
+
+def _k2_check(torch, fused_step, got, ref, idx, layer, pos, parity, rows, what) -> None:
+    """``ref`` (a copy of the planes before ``got``'s call) through the
+    plain version at ``pos``, then K2's contract against ``got``."""
+    fused_step.permute_append_reference(*ref, idx, layer, pos, parity, *rows)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        if not _k2_contract_equal(torch, a, b, layer, pos, parity):
+            fail(f"K2 {what} differs from its plain version at pos {pos} parity {parity}")
+
+
+def k2_device_position(torch, fused_step, gen) -> dict:
+    """K2 reading its position from an int64 on the card, as a captured
+    decode step launches it, at the flagship's planes (fp8, new rows in
+    bf16): launched directly at pos 0, 1, 113, 226 and 227 and both
+    parities, then replayed from two captured graphs (one per read parity,
+    one memory pool, one set of planes, each advancing the position as a
+    decode step does) at the positions of ``DEVICE_POS_RUNS``, parities
+    alternating; each call bitwise against the plain version at the same
+    position. One kernel per call, launched and replayed (profiler);
+    timed at pos 35 and 200 beside the launch-argument form."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, n_layer, bk, ctx, hd = FLAGSHIP_PLANES
+    idx = torch.randint(0, bk, (bk,), generator=gen, device="cuda", dtype=torch.int32)
+    idx[1] = idx[0]  # beam branching: a duplicate, always
+    layer = n_layer - 1
+    planes = [(4 * torch.randn(FLAGSHIP_PLANES, generator=gen, device="cuda")).to(getattr(torch, FP8))
+              for _ in range(2)]
+    rows = [r.to(torch.bfloat16) for r in (torch.randn((bk, hd), generator=gen, device="cuda")
+                                          for _ in range(2))]
+    at = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    for pos in (0, 1, 113, ctx - 2, ctx - 1):
+        for parity in (0, 1):
+            at.fill_(pos)
+            ref = [p.clone() for p in planes]
+            fused_step.permute_append(*planes, idx, layer, at, parity, *rows)
+            _k2_check(torch, fused_step, planes, ref, idx, layer, pos, parity, rows, "launched")
+    names = kernels_per_call(torch, lambda: fused_step.permute_append(*planes, idx, layer, at, 0, *rows))
+    if len(names) != 1 or fused_step.KERNEL_SYMBOL not in names[0]:
+        fail(f"K2 with a device position launched {names}, expected its one kernel")
+
+    graphs, pool = [], torch.cuda.graph_pool_handle()
+    for parity in (0, 1):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool):
+            fused_step.permute_append(*planes, idx, layer, at, parity, *rows)
+            at.add_(1)
+        graphs.append(g)
+    step = 0
+    for first, n in DEVICE_POS_RUNS:
+        at.fill_(first)
+        for pos in range(first, first + n):
+            parity = step % 2
+            ref = [p.clone() for p in planes]
+            graphs[parity].replay()
+            _k2_check(torch, fused_step, planes, ref, idx, layer, pos, parity, rows, "replayed")
+            if int(at.item()) != pos + 1:
+                fail(f"K2's graph left the position at {int(at.item())}, expected {pos + 1}")
+            step += 1
+    at.fill_(35)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graphs[0].replay()
+        torch.cuda.synchronize()
+    replayed = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and fused_step.KERNEL_SYMBOL in e.name]
+    if len(replayed) != 1:
+        fail(f"a replay of K2's graph ran {replayed} in a profiler trace, expected its one kernel")
+
+    times = {}
+    for pos in (35, 200):
+        at.fill_(pos)
+        times[pos] = (
+            time_ms(lambda: fused_step.permute_append(*planes, idx, layer, at, 0, *rows)),
+            time_ms(lambda: fused_step.permute_append(*planes, idx, layer, pos, 0, *rows)),
+        )
+    log(
+        f"  K2 {list(FLAGSHIP_PLANES)} {FP8}, device position, bf16 rows: bitwise equal launched "
+        f"(pos 0, 1, 113, {ctx - 2}, {ctx - 1}; both parities) and replayed from two graphs at "
+        f"{step} positions ({', '.join(f'{a}–{a + n - 1}' for a, n in DEVICE_POS_RUNS)}, parities "
+        f"alternating); one kernel per call, launched and replayed; "
+        + "; ".join(f"pos {p}: {d:.4f} ms, with pos as a launch argument {i:.4f} ms"
+                    for p, (d, i) in times.items())
+    )
+    return {"shape": list(FLAGSHIP_PLANES), "replayed_positions": step,
+            "ms": {str(p): d for p, (d, _) in times.items()},
+            "launch_argument_ms": {str(p): i for p, (_, i) in times.items()}}
+
+
 def phase_permute_append(torch, fused_step) -> dict:
     """K2 against its plain version, bitwise, at the beam main path's shape
     (large-v3 beam 5 batch 4: planes [2, 32, 20, 68, 1280], in fp8 and
@@ -782,6 +881,7 @@ def phase_permute_append(torch, fused_step) -> dict:
                 "distinct_sources": n_src, "permutation_ms": perm_ms,
                 "permutation_bound_ms": perm_bound,
             }
+    record["device_position"] = k2_device_position(torch, fused_step, gen)
     return record
 
 
@@ -1707,6 +1807,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         fail(f"hybrid: K3 launched {k3} times, K5 {k5}, K2′ {k2s}, K6 {k6}, expected none")
     if k2 != LARGE_V3_DEC_LAYERS * steps or k4 != 0:
         fail(f"hybrid: K2 launched {k2} times (expected {LARGE_V3_DEC_LAYERS * steps}), K4 {k4} (expected 0)")
+    k2_on_card(torch, fused_step, beam, engine, enc_out)
 
     # The same weights with the eager step and the K4 reorder.
     off = type(engine)(engine.assets, dataclasses.replace(cfg, fused_step="off"), device="cuda")
@@ -1730,6 +1831,31 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
             fail(f"hybrid and off tokens differ: {a.tokens[:a.length].tolist()} vs {b.tokens[:b.length].tolist()}")
     log("  hybrid and off tokens equal")
     return k2, k4_off, engine, results
+
+
+def k2_on_card(torch, fused_step, beam, engine, enc_out) -> None:
+    """K2's kernels on the card in one more decode of the stage's encoder
+    output, whose steps are replays of captured graphs: counted from a
+    profiler trace, they must be one per decoder layer and step, as
+    ``fused_step.launches`` counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.decode import graph
+
+    steps0, replays0, k2_0 = beam.steps, graph.replays, fused_step.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine._decode(enc_out)
+        torch.cuda.synchronize()
+    steps, replays, counted = beam.steps - steps0, graph.replays - replays0, fused_step.launches - k2_0
+    on_card = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and fused_step.KERNEL_SYMBOL in e.name)
+    log(f"  profiled decode: {steps} steps, {replays} of them replayed; K2 kernels in the trace "
+        f"{on_card}, counted {counted} ({steps} steps × {LARGE_V3_DEC_LAYERS} layers)")
+    if steps == 0 or replays != steps:
+        fail(f"the profiled decode replayed {replays} of its {steps} steps, expected every one")
+    if on_card != LARGE_V3_DEC_LAYERS * steps or counted != on_card:
+        fail(f"K2 ran {on_card} times on the card and was counted {counted} times, "
+             f"expected {LARGE_V3_DEC_LAYERS * steps}")
 
 
 def phase_quantize_witness(torch, main_engine, beam_engine) -> None:
@@ -2048,8 +2174,11 @@ def _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s) -> dict:
     if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
         fail(f"4e {label}: the ranks returned different result lists")
     # This process's engine on the same weights at the same budget (its
-    # beam rounds traced, for the margin of a flip).
+    # beam rounds traced, for the margin of a flip). The trace reads every
+    # round on the host, so this engine decodes eagerly: a captured step
+    # (decode/graph.py) would run the trace once, at capture.
     single = type(engine)(assets, cfg, device=engine.device)
+    single._graphs = None
     with _beam_trace(beam_search) as rounds:
         ref = single.transcribe_batch(batch)
     flips = []

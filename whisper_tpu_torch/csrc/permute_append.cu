@@ -57,6 +57,14 @@
 // K2 and K2′ are two __global__ functions over one body, so a profiler
 // trace tells them apart.
 //
+// Device position (K2 only): a decode step captured as a CUDA graph fixes
+// its launch arguments at capture, so the entry may instead take a
+// pointer to the position as an int64 on the card. The grid then covers
+// the longest window the planes hold ([0, ctx - 1)), every block reads the
+// position, and the blocks past the window copy nothing; a position
+// outside [0, ctx) traps. The bytes moved are those of the launch-argument
+// form at the same position.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (whisper_tpu_torch/ops/build.py).
 
@@ -78,8 +86,8 @@ struct Args {
 };
 
 // Block (chunk blockIdx.x, destination row blockIdx.y, K or V blockIdx.z)
-// with local source row `src`.
-__device__ __forceinline__ void permute_append_block(const Args& a, int src) {
+// with local source row `src`, the new rows at `pos`.
+__device__ __forceinline__ void permute_append_block(const Args& a, int src, int pos) {
   if (src < 0 || src >= a.bk) __trap();
   const int r = blockIdx.y;
   // K or V by constant indices: an index from blockIdx would put the whole
@@ -91,27 +99,34 @@ __device__ __forceinline__ void permute_append_block(const Args& a, int src) {
   if (blockIdx.x + 1 < gridDim.x) {  // a chunk of the window [0, pos)
     const uint8_t* from = plane + (((int64_t)a.parity * a.n_layer + a.layer) * a.bk + src) * plane_row;
     row_copy::copy_chunk(reinterpret_cast<const uint4*>(from), reinterpret_cast<uint4*>(dst),
-                         (int64_t)blockIdx.x * row_copy::kChunkVecs, (int64_t)a.pos * a.row_bytes / 16);
+                         (int64_t)blockIdx.x * row_copy::kChunkVecs, (int64_t)pos * a.row_bytes / 16);
     return;
   }
   const store_cast::Row row{
       v ? a.rows[1] + r * a.row_stride[1] : a.rows[0] + r * a.row_stride[0],
-      v ? a.elem_stride[1] : a.elem_stride[0], dst + (int64_t)a.pos * a.row_bytes, a.hd,
+      v ? a.elem_stride[1] : a.elem_stride[0], dst + (int64_t)pos * a.row_bytes, a.hd,
       (int)threadIdx.x, row_copy::kThreads, a.e4m3_saturates};
   store_cast::store_row(a.row_dtype, a.storage_dtype, row);
 }
 
-// K2: idx holds local source rows.
+// K2: idx holds local source rows; the position is a.pos, or *pos_at
+// where that is not NULL.
 __global__ void __launch_bounds__(row_copy::kThreads)
-    permute_append_kernel(Args a, const int* __restrict__ idx) {
-  permute_append_block(a, idx[blockIdx.y]);
+    permute_append_kernel(Args a, const int* __restrict__ idx, const int64_t* __restrict__ pos_at) {
+  int pos = a.pos;
+  if (pos_at != nullptr) {
+    const int64_t p = *pos_at;
+    if (p < 0 || p >= a.ctx) __trap();
+    pos = (int)p;
+  }
+  permute_append_block(a, idx[blockIdx.y], pos);
 }
 
 // K2′: idx holds global source rows, made local here.
 __global__ void __launch_bounds__(row_copy::kThreads)
     permute_append_sharded_kernel(Args a, const int* __restrict__ idx, int beam) {
   const int r = blockIdx.y;
-  permute_append_block(a, (r / beam) * beam + idx[r] % beam);
+  permute_append_block(a, (r / beam) * beam + idx[r] % beam, a.pos);
 }
 
 }  // namespace
@@ -119,13 +134,14 @@ __global__ void __launch_bounds__(row_copy::kThreads)
 // Row strides in bytes, element strides in elements of the row dtype;
 // dtype codes and e4m3_saturates as store_cast.cuh. beam == 0 is K2, beam
 // > 0 K2′ (bk is then the rank's row count, a multiple of beam; the
-// wrapper checks). Returns the cudaError of the launch.
+// wrapper checks). pos_at: NULL, or (K2 only) the position on the card,
+// which replaces pos. Returns the cudaError of the launch.
 extern "C" int permute_append(void* ck, void* cv, const void* k_new, const void* v_new,
                               int64_t k_row_stride, int64_t k_elem_stride, int64_t v_row_stride,
                               int64_t v_elem_stride, int row_dtype, int storage_dtype,
                               int e4m3_saturates, const int* idx, int n_layer, int bk,
                               int ctx, int hd, int itemsize, int layer, int pos, int parity,
-                              int beam, int device, void* stream) {
+                              int beam, int device, void* stream, const int64_t* pos_at) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a;
@@ -148,10 +164,12 @@ extern "C" int permute_append(void* ck, void* cv, const void* k_new, const void*
   a.row_dtype = row_dtype;
   a.storage_dtype = storage_dtype;
   a.e4m3_saturates = e4m3_saturates != 0;
-  const int64_t chunks = row_copy::chunks((int64_t)pos * a.row_bytes / 16);
+  if (pos_at != nullptr && beam != 0) return (int)cudaErrorInvalidValue;
+  const int64_t window = pos_at != nullptr ? ctx - 1 : pos;  // the longest window copied
+  const int64_t chunks = row_copy::chunks(window * a.row_bytes / 16);
   const dim3 grid((unsigned)(chunks + 1), (unsigned)bk, 2);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beam == 0) permute_append_kernel<<<grid, row_copy::kThreads, 0, s>>>(a, idx);
+  if (beam == 0) permute_append_kernel<<<grid, row_copy::kThreads, 0, s>>>(a, idx, pos_at);
   else permute_append_sharded_kernel<<<grid, row_copy::kThreads, 0, s>>>(a, idx, beam);
   return (int)cudaGetLastError();
 }

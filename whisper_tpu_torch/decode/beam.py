@@ -34,16 +34,25 @@ Three step modes (:func:`resolve_fused`), with equal results:
 
 The port decodes eagerly into one preallocated cache of ``p_len +
 max_new`` positions (no segment growth); each step decides on the host
-whether to go on.
+whether to go on. Given ``graphs`` (``decode/graph.StepGraphs``), a
+"hybrid" decode without a mesh runs each step after the first expansion
+as a replay of a captured CUDA graph: the step (K2's step, the log-probs,
+the selection round, the next pending permutation) reads and writes
+static buffers and its position from a device tensor it advances, and
+reads a fixed window of the plane under a mask (``models/decoder.py``;
+one graph per read window and read-plane parity,
+``decode/graph.window``).
 """
 
 from __future__ import annotations
 
+import types
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from whisper_tpu_torch.config import ModelDims
+from whisper_tpu_torch.decode.graph import crop, cross_buffers, window
 from whisper_tpu_torch.decode.logits import LogitRules
 from whisper_tpu_torch.models.decoder import (
     KVCache,
@@ -178,6 +187,13 @@ def _lengths_of(tokens: torch.Tensor, p_len: int, eot: int) -> torch.Tensor:
     return torch.where(is_eot.any(dim=-1), p_len + first + 1, tokens.shape[-1])
 
 
+def _sources(b: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each utterance's first beam row [B, 1], and each candidate's source
+    slot [B, K·(K+1)] in the beam-major pool of per-beam top-(K+1)."""
+    base = torch.arange(b, device=device)[:, None] * k
+    return base, (torch.arange(k * (k + 1), device=device) // (k + 1))[None, :].expand(b, -1)
+
+
 def resolve_fused(
     fused, dims: ModelDims, device: torch.device, kv_dtype: torch.dtype, tp: int = 1
 ) -> str:
@@ -289,6 +305,7 @@ def beam_decode(
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
     fused="auto",  # step mode, see resolve_fused
     mesh=None,  # parallel.mesh.Mesh when this is one rank of a mesh
+    graphs=None,  # decode.graph.StepGraphs: replay "hybrid" steps as CUDA graphs
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, P+max_new], lengths [B], scores [B]) of the best
     finished hypothesis per batch item (length-normalised score), plus
@@ -317,8 +334,39 @@ def beam_decode(
     mode = resolve_fused(fused, dims, device, store, tp=tp)
     # Global number of this rank's first beam row.
     row0 = mesh.data_index * bk if mesh is not None else 0
+    entry = None
+    if graphs is not None and mode == "hybrid" and mesh is None:
+        h, dh = dims.n_text_head, dims.n_text_state // dims.n_text_head
+        cross_dtype = kv_cache_dtype or enc_out.dtype
+        share = ("beam", b, k, total_len, cross_dtype, store)
+        key = share + (p_len, enc_out.shape[1], compute_dtype, eot, id(params), id(rules),
+                       id(logit_bias))
+
+        def buffers():
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=device)
+
+            planes = (2, dims.n_text_layer, bk, total_len, h * dh)
+            return types.SimpleNamespace(
+                planes={n: zeros(planes, store) for n in ("k", "v")},
+                cross=cross_buffers(dims, b, cross_dtype, device),
+                tokens=zeros((bk, total_len), torch.long), scores=zeros((bk,), torch.float32),
+                fin=FinishedSet(zeros((b, k, total_len), torch.long),
+                                zeros((b, k), torch.float32), zeros((b, k), torch.long),
+                                zeros((b, k), torch.bool)),
+                pending=zeros((bk,), torch.int32), pos=zeros((1,), torch.long),
+                sources=_sources(b, k, device),
+            )
+
+        entry = graphs.entry(key, buffers, keep=(params, rules, logit_bias), share=share)
+        static_cross = crop(entry.buffers.cross, enc_out.shape[1])
     if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh)
+        cross_kv = precompute_cross_kv(
+            params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh,
+            out=None if entry is None else static_cross,
+        )
+    elif entry is not None:  # made ahead (detection's): into the step's buffers
+        cross_kv = {n: static_cross[n].copy_(cross_kv[n]) for n in ("k", "v")}
 
     def logprobs_of(logits, tokens, pos):
         if logit_bias is not None:
@@ -340,7 +388,9 @@ def beam_decode(
             probs = torch.softmax(logits[:, sot_index, :].float(), dim=-1)
             out_extra = (probs[:, nospeech_id],)
         if mode == "hybrid":
-            cache = plane_cache_from_prefill(cache_b, k)
+            cache = plane_cache_from_prefill(
+                cache_b, k, out=None if entry is None else entry.buffers.planes
+            )
         else:
             cache = {n: v.repeat_interleave(k, dim=1) for n, v in cache_b.items()}
         del cache_b
@@ -367,13 +417,15 @@ def beam_decode(
         # EOT-filled past the prompt already).
         fin = _insert_finished(fin, fin_tokens, sel0.eot_scores, fin.lengths, sel0.eot_valid)
 
-        base = torch.arange(b, device=device)[:, None] * k
-        cand_src = (torch.arange(k * (k + 1), device=device) // (k + 1))[None, :].expand(b, -1)
+        # A captured step reads the entry's copies, which outlive this call.
+        base, cand_src = _sources(b, k, device) if entry is None else entry.buffers.sources
 
         def advance(s_tokens, s_scores, s_fin, lp, pos):
             """One selection round: openai's candidate walk, finished
-            insertions, continuation gather. Returns (tokens, scores, fin,
-            act_rows), act_rows the [B·K] source-beam permutation."""
+            insertions, continuation gather, the new token written at
+            ``pos`` (an int, or a one-element device tensor). Returns
+            (tokens, scores, fin, act_rows), act_rows the [B·K] source-beam
+            permutation."""
             top_lp, top_tok = topk_wide(lp, k + 1)  # [BK, K+1]
             cand_scores = (s_scores[:, None] + top_lp).reshape(b, k * (k + 1))
             cand_tokens = top_tok.reshape(b, k * (k + 1))
@@ -381,58 +433,108 @@ def beam_decode(
             # Finished insertions: the source beams' buffers already end in the
             # EOT fill at `pos`, so each is the hypothesis as it is.
             eot_rows = (base + torch.gather(cand_src, 1, sel.eot_idx)).reshape(bk)
+            on_card = isinstance(pos, torch.Tensor)
+            ends = ((pos + 1).expand(b, k) if on_card
+                    else torch.full((b, k), pos + 1, dtype=torch.long, device=device))
             s_fin = _insert_finished(
-                s_fin, s_tokens[eot_rows].reshape(b, k, total_len), sel.eot_scores,
-                torch.full((b, k), pos + 1, dtype=torch.long, device=device), sel.eot_valid,
+                s_fin, s_tokens[eot_rows].reshape(b, k, total_len), sel.eot_scores, ends,
+                sel.eot_valid,
             )
             # Continuations: gather token buffers by source beam, write the token.
             act_rows = (base + torch.gather(cand_src, 1, sel.act_idx)).reshape(bk)
             new_tokens = s_tokens[act_rows]
-            new_tokens[:, pos] = torch.gather(cand_tokens, 1, sel.act_idx).reshape(bk)
+            chosen = torch.gather(cand_tokens, 1, sel.act_idx).reshape(bk)
+            if on_card:
+                new_tokens.scatter_(1, pos.expand(bk)[:, None], chosen[:, None])
+            else:
+                new_tokens[:, pos] = chosen
             return new_tokens, sel.act_scores.reshape(bk), s_fin, act_rows
 
         pos = p_len + 1  # next position to write
-        if mode == "hybrid":
+        graphed = 0
+        if entry is not None:
+            st = entry.buffers
+            st.tokens.copy_(tokens)
+            st.scores.copy_(scores)
+            for dst, src in zip(st.fin, fin):
+                dst.copy_(src)
+            torch.arange(bk, out=st.pending)  # the fan-out's identity
+            st.pos.fill_(p_len)
+
+            def run(variant) -> None:
+                """The hybrid step on the static buffers at the position in
+                ``st.pos`` (the token fed), which it advances; ``variant``
+                is the plane it reads (its parity) and its read window."""
+                parity, w = variant
+                at = st.pos
+                logits, _ = decoder_step_fused(
+                    params, st.tokens.gather(1, at.expand(bk)[:, None])[:, 0], at, st.planes,
+                    parity, st.pending, cross_kv, dims, compute_dtype, beam_width=k, window=w,
+                )
+                nxt = at + 1
+                lp = logprobs_of(logits, st.tokens, nxt.expand(bk))
+                new_tokens, new_scores, new_fin, act_rows = advance(
+                    st.tokens, st.scores, st.fin, lp, nxt
+                )
+                st.tokens.copy_(new_tokens)
+                st.scores.copy_(new_scores)
+                for dst, src in zip(st.fin, new_fin):
+                    dst.copy_(src)
+                st.pending.copy_(act_rows)  # the next step's K2 reads through it
+                st.pos.add_(1)
+
             parity = 0
-            # Rows within a sample are identical after the fan-out: the first
-            # pending permutation is the identity.
-            pending = torch.arange(row0, row0 + bk, dtype=torch.int32, device=device)
-        elif mode == "lineage":
-            lineage = init_lineage(b, k, total_len, p_len, device=device)
+            while pos < total_len and not all_on_host(st.fin.valid):
+                with annotate("decode.step"):
+                    graphed += entry.step(run, (parity, window(pos - 1, total_len)))
+                    parity = 1 - parity
+                    steps += 1
+                pos += 1
+            tokens, scores, fin = st.tokens, st.scores, st.fin
         else:
-            spare = {n: torch.empty_like(v) for n, v in cache.items()}
-        # Each step decides on the host whether to go on: one small device →
-        # host read per token.
-        while pos < total_len and not all_on_host(fin.valid):
-            with annotate("decode.step"):
-                prev = tokens[:, pos - 1]
-                if mode == "hybrid":
-                    logits, cache = decoder_step_fused(
-                        params, prev, pos - 1, cache, parity, pending, cross_kv, dims,
-                        compute_dtype, beam_width=k, sharded=mesh is not None,
-                    )
-                elif mode == "lineage":
-                    logits, cache, lineage = decoder_step_lineage(
-                        params, prev, pos - 1, cache, lineage, cross_kv, dims, compute_dtype,
-                        beam_width=k, tp=mesh,
-                    )
-                else:
-                    logits, cache = decoder_step(
-                        params, prev, pos - 1, cache, cross_kv, dims, compute_dtype, beam_width=k,
-                        tp=mesh,
-                    )
-                lp = logprobs_of(logits, tokens, pos)
-                tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)
-                if mode == "hybrid":
-                    # Not applied now: the next step's K2 reads through it.
-                    parity, pending = 1 - parity, (row0 + act_rows).to(torch.int32)
-                elif mode == "lineage":
-                    lineage = lineage[act_rows]
-                else:
-                    # The written window [0, pos) moves into the spare buffer.
-                    cache, spare = reorder_cache_window(cache, act_rows, bk, pos, out=spare), cache
-                steps += 1
-            pos += 1
+            if mode == "hybrid":
+                parity = 0
+                # Rows within a sample are identical after the fan-out: the first
+                # pending permutation is the identity.
+                pending = torch.arange(row0, row0 + bk, dtype=torch.int32, device=device)
+            elif mode == "lineage":
+                lineage = init_lineage(b, k, total_len, p_len, device=device)
+            else:
+                spare = {n: torch.empty_like(v) for n, v in cache.items()}
+            # Each step decides on the host whether to go on: one small device →
+            # host read per token.
+            while pos < total_len and not all_on_host(fin.valid):
+                with annotate("decode.step"):
+                    prev = tokens[:, pos - 1]
+                    if mode == "hybrid":
+                        logits, cache = decoder_step_fused(
+                            params, prev, pos - 1, cache, parity, pending, cross_kv, dims,
+                            compute_dtype, beam_width=k, sharded=mesh is not None,
+                        )
+                    elif mode == "lineage":
+                        logits, cache, lineage = decoder_step_lineage(
+                            params, prev, pos - 1, cache, lineage, cross_kv, dims, compute_dtype,
+                            beam_width=k, tp=mesh,
+                        )
+                    else:
+                        logits, cache = decoder_step(
+                            params, prev, pos - 1, cache, cross_kv, dims, compute_dtype,
+                            beam_width=k, tp=mesh,
+                        )
+                    lp = logprobs_of(logits, tokens, pos)
+                    tokens, scores, fin, act_rows = advance(tokens, scores, fin, lp, pos)
+                    if mode == "hybrid":
+                        # Not applied now: the next step's K2 reads through it.
+                        parity, pending = 1 - parity, (row0 + act_rows).to(torch.int32)
+                    elif mode == "lineage":
+                        lineage = lineage[act_rows]
+                    else:
+                        # The written window [0, pos) moves into the spare buffer.
+                        cache, spare = (
+                            reorder_cache_window(cache, act_rows, bk, pos, out=spare), cache
+                        )
+                    steps += 1
+                pos += 1
 
         # --- finalize: pad incomplete finished sets from the active beams in
         # raw-score order (their buffers already carry the EOT fill) ---
@@ -450,5 +552,5 @@ def beam_decode(
         rows = torch.arange(b, device=device)
         best_tokens, best_lengths = fin.tokens[rows, best], fin.lengths[rows, best]
         best_scores = norm_scores[rows, best]
-        loop.set(steps=pos - p_len - 1)
+        loop.set(steps=pos - p_len - 1, graphed=graphed)
     return (best_tokens, best_lengths, best_scores) + out_extra

@@ -21,18 +21,30 @@ the same injected noise.
 On a tensor-parallel ``mesh`` every rank of a model group holds the same
 all-reduced logits, so every rank picks the same tokens (and draws the
 same noise: the engine seeds the generator by data index).
+
+Given ``graphs`` (``decode/graph.StepGraphs``), a decode without
+temperature and without a mesh runs each step after the first pick as a
+replay of one captured CUDA graph: the step reads and writes static
+buffers (the KV cache, cross-K/V, tokens, the finished flags, the
+logprob sums) and its position from a device tensor it advances, and
+reads a fixed window of the cache under a mask (``models/decoder.py``;
+one graph per window, ``decode/graph.window``). The prefill, the first
+pick and the host's loop test are those of the eager loop.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Optional, Tuple
 
 import torch
 
 from whisper_tpu_torch.config import ModelDims
+from whisper_tpu_torch.decode.graph import crop, cross_buffers, window
 from whisper_tpu_torch.decode.logits import LogitRules
 from whisper_tpu_torch.models.decoder import (
     KVCache,
+    _decoder_forward,
     decoder_prefill,
     decoder_step,
     init_kv_cache,
@@ -90,6 +102,7 @@ def greedy_decode(
     return_logprobs: bool = False,
     no_speech: Optional[Tuple[int, int]] = None,  # (sot_index, nospeech_id)
     mesh=None,  # parallel.mesh.Mesh of this rank: its model axis cuts the heads
+    graphs=None,  # decode.graph.StepGraphs: replay the step as a CUDA graph where it applies
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, P + max_new_tokens], lengths [B]) — plus
     (sum_logprobs [B] f32,) when ``return_logprobs``, plus
@@ -115,10 +128,36 @@ def greedy_decode(
         )
     device = enc_out.device
     prompt = prompt.to(device=device, dtype=torch.long)
-    if cross_kv is None:
-        cross_kv = precompute_cross_kv(params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh)
+    store = kv_cache_dtype or compute_dtype
+    entry = None
+    if graphs is not None and temperature is None and mesh is None:
+        cross_dtype = kv_cache_dtype or enc_out.dtype
+        share = ("greedy", b, total_len, cross_dtype, store)
+        key = share + (p_len, enc_out.shape[1], compute_dtype, eot, return_logprobs, id(params),
+                       id(rules), id(logit_bias))
 
-    def pick(logits: torch.Tensor, tokens: torch.Tensor, pos: int):
+        def buffers():
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=device)
+
+            return types.SimpleNamespace(
+                cache=init_kv_cache(dims, b, total_len, dtype=store, device=device),
+                cross=cross_buffers(dims, b, cross_dtype, device),
+                tokens=zeros((b, total_len), torch.long), finished=zeros((b,), torch.bool),
+                sum_lp=zeros((b,), torch.float32), pos=zeros((1,), torch.long),
+            )
+
+        entry = graphs.entry(key, buffers, keep=(params, rules, logit_bias), share=share)
+        static_cross = crop(entry.buffers.cross, enc_out.shape[1])
+    if cross_kv is None:
+        cross_kv = precompute_cross_kv(
+            params, enc_out, dims, kv_dtype=kv_cache_dtype, tp=mesh,
+            out=None if entry is None else static_cross,
+        )
+    elif entry is not None:  # made ahead (detection's): into the step's buffers
+        cross_kv = {n: static_cross[n].copy_(cross_kv[n]) for n in ("k", "v")}
+
+    def pick(logits: torch.Tensor, tokens: torch.Tensor, pos):
         """Constrained logits → (chosen token [B], its logprob [B] or None)."""
         if logit_bias is not None:
             logits = logits + logit_bias
@@ -136,8 +175,8 @@ def greedy_decode(
         return choice, lp.gather(-1, choice[:, None])[:, 0]
 
     with annotate("decode.loop", device=device) as loop:
-        cache = init_kv_cache(
-            dims, b, total_len, dtype=kv_cache_dtype or compute_dtype, device=device, tp=mesh
+        cache = entry.buffers.cache if entry is not None else init_kv_cache(
+            dims, b, total_len, dtype=store, device=device, tp=mesh
         )
         logits, cache = decoder_prefill(
             params, prompt, cache, cross_kv, dims, compute_dtype, tp=mesh
@@ -158,20 +197,38 @@ def greedy_decode(
         # Each step decides on the host whether to go on: one small device →
         # host read per token.
         pos = p_len + 1
-        while pos < total_len and not all_on_host(finished):
-            with annotate("decode.step"):
-                logits, cache = decoder_step(
-                    params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype,
-                    tp=mesh,
-                )
-                steps += 1
-                nxt, lp = pick(logits, tokens, pos)
-                if return_logprobs:  # frozen rows stop adding
-                    sum_lp = sum_lp + torch.where(finished, 0.0, lp)
-                nxt = torch.where(finished, eot, nxt)
-                tokens[:, pos] = nxt
-                finished = finished | (nxt == eot)
-            pos += 1
+        graphed = 0
+        if entry is not None:
+            st = entry.buffers
+            st.tokens.copy_(tokens)
+            st.finished.copy_(finished)
+            if return_logprobs:
+                st.sum_lp.copy_(sum_lp)
+            st.pos.fill_(p_len)
+            run = _graph_step(params, st, cross_kv, dims, compute_dtype, pick, eot,
+                              return_logprobs)
+            while pos < total_len and not all_on_host(st.finished):
+                with annotate("decode.step"):
+                    graphed += entry.step(run, window(pos - 1, total_len))
+                    steps += 1
+                pos += 1
+            tokens = st.tokens.clone()
+            sum_lp = st.sum_lp.clone() if return_logprobs else None
+        else:
+            while pos < total_len and not all_on_host(finished):
+                with annotate("decode.step"):
+                    logits, cache = decoder_step(
+                        params, tokens[:, pos - 1], pos - 1, cache, cross_kv, dims, compute_dtype,
+                        tp=mesh,
+                    )
+                    steps += 1
+                    nxt, lp = pick(logits, tokens, pos)
+                    if return_logprobs:  # frozen rows stop adding
+                        sum_lp = sum_lp + torch.where(finished, 0.0, lp)
+                    nxt = torch.where(finished, eot, nxt)
+                    tokens[:, pos] = nxt
+                    finished = finished | (nxt == eot)
+                pos += 1
 
         # Length = index of first EOT at/after the prompt, +1 to include it.
         is_eot = tokens[:, p_len:] == eot
@@ -180,5 +237,30 @@ def greedy_decode(
         lengths = torch.where(any_eot, p_len + first_eot + 1, total_len)
         if return_logprobs:
             out_extra = (sum_lp,) + out_extra
-        loop.set(steps=pos - p_len - 1)
+        loop.set(steps=pos - p_len - 1, graphed=graphed)
     return (tokens, lengths) + out_extra
+
+
+def _graph_step(params, st, cross, dims, compute_dtype, pick, eot: int, return_logprobs: bool):
+    """The greedy step on static buffers ``st`` (a ``StepGraphs`` entry's)
+    and ``cross`` (the crop of its cross-K/V), at the position held in
+    ``st.pos`` (the token fed; the pick lands one further), which it
+    advances: the eager loop's step with every position read on the card.
+    ``run(w)`` reads the cache's first ``w`` positions."""
+    b = st.tokens.shape[0]
+
+    def run(w: int) -> None:
+        at = st.pos.expand(b)
+        cache = {n: c[:, :, :w] for n, c in st.cache.items()}
+        logits, _ = _decoder_forward(
+            params, st.tokens.gather(1, at[:, None]), at, cache, cross, dims, compute_dtype
+        )
+        nxt, lp = pick(logits[:, 0], st.tokens, at + 1)
+        if return_logprobs:  # frozen rows stop adding
+            st.sum_lp.add_(torch.where(st.finished, 0.0, lp))
+        nxt = torch.where(st.finished, eot, nxt)
+        st.tokens.scatter_(1, (at + 1)[:, None], nxt[:, None])
+        st.finished.logical_or_(nxt == eot)
+        st.pos.add_(1)
+
+    return run

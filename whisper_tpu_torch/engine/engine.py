@@ -92,6 +92,7 @@ from whisper_tpu_torch.decode import beam as beam_mod
 from whisper_tpu_torch.decode import greedy as greedy_mod
 from whisper_tpu_torch.decode.beam import beam_decode
 from whisper_tpu_torch.decode.fallback import compression_ratio, needs_fallback, normalize_schedule
+from whisper_tpu_torch.decode.graph import StepGraphs
 from whisper_tpu_torch.decode.greedy import greedy_decode
 from whisper_tpu_torch.decode.language import detect_language_tokens, lang_token_to_code
 from whisper_tpu_torch.decode.logits import make_rules
@@ -373,6 +374,9 @@ class Engine:
                 else default_alignment_mask(self.dims)
             )
         self._init_draft(draft_params)
+        # The decode loops' captured steps (decode/graph.py): CUDA graphs of
+        # one step, where the tensors are on a card and there is no mesh.
+        self._graphs = StepGraphs() if self.device.type == "cuda" and self.mesh is None else None
         # Stage times and throughput counters (utils/profiling.py), recorded
         # by transcribe_batch and read by the HTTP server's /metrics.
         self.timer = StageTimer()
@@ -535,10 +539,12 @@ class Engine:
         if self.config.beam_size > 1:
             out = beam_decode(
                 self.assets.params, enc_out, prompts, beam_size=self.config.beam_size,
-                fused=self.config.fused_step, mesh=self.mesh, **common,
+                fused=self.config.fused_step, mesh=self.mesh, graphs=self._graphs, **common,
             )
             return out[0], out[1], out[2], out[3] if ns else None
-        out = greedy_decode(self.assets.params, enc_out, prompts, mesh=self.mesh, **common)
+        out = greedy_decode(
+            self.assets.params, enc_out, prompts, mesh=self.mesh, graphs=self._graphs, **common
+        )
         return out[0], out[1], None, out[2] if ns else None
 
     def _generator(self, attempt: int) -> torch.Generator:
@@ -1097,7 +1103,7 @@ class Engine:
         common = dict(
             dims=self.dims, eot=self.vocab.specials.eot, max_new_tokens=max_new, rules=rules,
             logit_bias=self._logit_bias, compute_dtype=self._compute_dtype,
-            kv_cache_dtype=self._kv_dtype,
+            kv_cache_dtype=self._kv_dtype, graphs=self._graphs,
         )
         if self.config.beam_size > 1:
             out = beam_decode(

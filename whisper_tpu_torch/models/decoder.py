@@ -30,6 +30,15 @@ same bytes, and their logits are bitwise equal on any device. With
 per-row positions the rows end at different depths, so the read covers
 the whole cache under a per-row mask, as JAX's does.
 
+A position held in a device tensor (the step of a CUDA graph,
+``decode/graph.py``, which fixes every shape and address) takes a fixed
+read window past it, chosen by the caller, under a mask: greedy through
+the per-row form (with every row at that position) over a cache cut to
+the window, the hybrid step under :func:`position_mask`. The masked
+positions weigh exactly 0, so the result equals the window read up to
+the order of the sums; the positions past ``pos`` must hold finite
+values (the graphs' caches are zero-filled when they are allocated).
+
 Tensor parallelism (``tp``: this rank's ``parallel.mesh.Mesh``): the
 caches and cross-K/V hold this rank's ``n_text_head / m`` heads, and a
 forward makes ``2 + 3 · n_text_layer`` collectives (the embedding's gather,
@@ -82,12 +91,14 @@ def precompute_cross_kv(
     dims: ModelDims,
     kv_dtype: Optional[torch.dtype] = None,
     tp=None,
+    out: Optional[KVCache] = None,
 ) -> KVCache:
     """Cross-attention K/V over encoder states, computed once per utterance:
     [L, B, H, Dh, n_audio_ctx] (H: this rank's heads under ``tp``, from its
     column-parallel k and v; no collective). ``kv_dtype`` optionally sets
     the storage dtype (e.g. ``torch.float8_e4m3fn``; attention upcasts at
-    use)."""
+    use). ``out``: buffers of that shape and dtype to write into (a
+    captured step's static cross-K/V) and return."""
     n_head = local_heads(dims.n_text_head, tp)
     ks, vs = [], []
     for bp in params["decoder"]["blocks"]:
@@ -99,13 +110,29 @@ def precompute_cross_kv(
             k, v = k.to(kv_dtype), v.to(kv_dtype)
         ks.append(k)
         vs.append(v)
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if out is None:
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+    torch.stack(ks, out=out["k"])
+    torch.stack(vs, out=out["v"])
+    return out
 
 
-def _embed_at(dec, tokens: torch.Tensor, pos: int, end: int, compute_dtype, tp=None) -> torch.Tensor:
+def _embed_at(dec, tokens: torch.Tensor, pos, end, compute_dtype, tp=None) -> torch.Tensor:
     """Token plus positional embedding for positions [pos, end), in the
-    compute dtype."""
-    return (layers.embed(dec["tok_emb"], tokens, tp) + dec["pos_emb"][pos:end]).to(compute_dtype)
+    compute dtype; a one-element device tensor ``pos`` (T = 1) indexes the
+    table's row, and ``end`` is not read."""
+    table = dec["pos_emb"]
+    rows = table[pos] if isinstance(pos, torch.Tensor) else table[pos:end]
+    return (layers.embed(dec["tok_emb"], tokens, tp) + rows).to(compute_dtype)
+
+
+def position_mask(pos: torch.Tensor, ctx: int, dtype: torch.dtype) -> torch.Tensor:
+    """[ctx] additive mask of one query at the position held in ``pos`` (a
+    one-element int64 tensor) over a cache of ``ctx`` positions: 0 at
+    positions ``<= pos``, -1e30 past it. Built once per step, shared by
+    every layer."""
+    k_pos = torch.arange(ctx, device=pos.device)
+    return torch.where(k_pos <= pos, 0.0, NEG_INF).to(dtype)
 
 
 def scatter_rows(dst: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
@@ -303,26 +330,29 @@ def decoder_step(
     return logits[:, 0, :], cache
 
 
-def plane_cache_from_prefill(cache: KVCache, beam: int) -> KVCache:
+def plane_cache_from_prefill(cache: KVCache, beam: int, out: Optional[KVCache] = None) -> KVCache:
     """Prefilled cache [L, B, ctx, H, Dh] → the ping-pong plane pair [2, L,
     B·beam, ctx, H·Dh] of the hybrid step (each utterance's rows repeated
     ``beam`` times, beam-minor, as ``jnp.repeat``). Plane 0 holds the
     fanned-out prefill and is the first step's read plane; plane 1 starts
-    as zeros and is written before it is read."""
+    as zeros and is written before it is read. ``out``: planes to write
+    plane 0 into (a captured step's static planes; plane 1 keeps what it
+    holds) and return."""
     l, b, ctx, h, dh = cache["k"].shape
 
-    def fan(x):
-        planes = x.new_zeros((2, l, b * beam, ctx, h * dh))
+    def fan(x, planes):
+        if planes is None:
+            planes = x.new_zeros((2, l, b * beam, ctx, h * dh))
         planes[0] = x.reshape(l, b, ctx, h * dh).repeat_interleave(beam, dim=1)
         return planes
 
-    return {"k": fan(cache["k"]), "v": fan(cache["v"])}
+    return {n: fan(cache[n], None if out is None else out[n]) for n in ("k", "v")}
 
 
 def decoder_step_fused(
     params: Params,
     token: torch.Tensor,  # [BK] — token at absolute position `pos`
-    pos: int,
+    pos: Union[int, torch.Tensor],  # an int, or a one-element int64 device tensor
     cache: KVCache,  # {"k"/"v": [2, L, BK, ctx, H·Dh]} ping-pong planes
     parity: int,  # plane to READ; this step writes plane 1 - parity
     pending_idx: torch.Tensor,  # [BK] int32 — beam permutation chosen at the
@@ -333,6 +363,7 @@ def decoder_step_fused(
     beam_width: int = 1,
     sharded: bool = False,  # a rank of a data-parallel mesh: the cache holds
     # this rank's rows and pending_idx their GLOBAL source rows (K2′)
+    window: Optional[int] = None,  # with a device pos: positions read (default ctx)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One beam step with the pending permutation applied by K2
     (``ops/fused_step.permute_append``): per layer, K2 makes plane ``1 -
@@ -344,6 +375,12 @@ def decoder_step_fused(
     ``pending_idx``, bitwise. JAX's block-diagonal merged read, which suits
     XLA on the TPU's matrix unit, is not carried over.
 
+    A device tensor ``pos`` (the step of a CUDA graph): K2 reads the
+    position on the card, and the read covers the plane's first ``window``
+    positions (all of them by default; ``pos`` must lie below it) under
+    :func:`position_mask`, equal to the window read up to the order of the
+    sums. Not on a mesh.
+
     ``sharded``: the per-layer call is K2′ (``permute_append_sharded``,
     which makes the global rows local with ``beam_width``), as JAX's step
     on a mesh (``mesh=``) runs it per data shard.
@@ -353,9 +390,17 @@ def decoder_step_fused(
     from whisper_tpu_torch.ops.fused_step import permute_append, permute_append_sharded
 
     dec = params["decoder"]
-    pos, parity = int(pos), int(parity)
+    parity = int(parity)
     ck, cv = cache["k"], cache["v"]
-    x = _embed_at(dec, token[:, None], pos, pos + 1, compute_dtype)
+    if isinstance(pos, torch.Tensor):
+        if sharded:
+            raise ValueError("a device position is not taken on a data-parallel mesh (K2′)")
+        w = window or ck.shape[3]
+        mask = position_mask(pos, w, compute_dtype)
+    else:
+        pos = int(pos)
+        w, mask = pos + 1, None
+    x = _embed_at(dec, token[:, None], pos, w, compute_dtype)
 
     def self_kv(layer, q, k_new, v_new):
         bk, _, h, dh = k_new.shape
@@ -364,8 +409,8 @@ def decoder_step_fused(
             permute_append_sharded(ck, cv, pending_idx, layer, pos, parity, *rows, beam=beam_width)
         else:
             permute_append(ck, cv, pending_idx, layer, pos, parity, *rows)
-        win = (p[1 - parity, layer, :, : pos + 1].view(bk, pos + 1, h, dh) for p in (ck, cv))
-        return (q, *win, None)
+        win = (p[1 - parity, layer, :, :w].view(bk, w, h, dh) for p in (ck, cv))
+        return (q, *win, mask)
 
     return _layers(dec, x, dims.n_text_head, cross_kv, beam_width, self_kv)[:, 0, :], cache
 

@@ -22,6 +22,13 @@ Only the window ``[0, pos]`` of the write plane is written: the positions
 past ``pos`` are unspecified, as in the JAX contract, and the decoder reads
 ``[0, pos]`` only. The JAX kernel copies whole rows. The planes are updated
 in place and returned.
+
+K2's ``pos`` may be a one-element int64 tensor on the planes' device, for
+a decode step captured as a CUDA graph (``decode/graph.py``), where a
+launch argument would be fixed at capture: the kernel then reads the
+position on the card (its grid covers the longest window the planes
+hold, and blocks past the window copy nothing; a position outside the
+planes traps), and the plain version reads it on the host.
 """
 
 from __future__ import annotations
@@ -63,6 +70,9 @@ def supported(hd: int, itemsize: int) -> bool:
 
 
 def _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> None:
+    """Raise where the operands are not K2's. A device position is checked
+    for its type and place here (at capture, in a CUDA graph) and for its
+    range by the kernel."""
     if cache_k.dim() != 5 or cache_k.shape[0] != 2:
         raise ValueError(f"{KERNEL}: planes must be [2, L, BK, ctx, HD], got {tuple(cache_k.shape)}")
     if cache_v.shape != cache_k.shape or cache_v.dtype != cache_k.dtype:
@@ -73,9 +83,17 @@ def _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> None:
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.shape != (bk, hd):
             raise ValueError(f"{KERNEL}: {name} must be [{bk}, {hd}], got {tuple(t.shape)}")
-    if not (0 <= layer < n_layer and 0 <= pos < ctx and parity in (0, 1)):
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int64 or pos.numel() != 1:
+            raise ValueError(
+                f"{KERNEL}: a device pos must be one int64, got {tuple(pos.shape)} {pos.dtype}"
+            )
+        pos_ok = ctx > 0
+    else:
+        pos_ok = 0 <= pos < ctx
+    if not (0 <= layer < n_layer and pos_ok and parity in (0, 1)):
         raise ValueError(f"{KERNEL}: layer {layer}, pos {pos}, parity {parity} out of range")
-    for t in (cache_v, idx, k_new, v_new):
+    for t in (cache_v, idx, k_new, v_new) + ((pos,) if isinstance(pos, torch.Tensor) else ()):
         if t.device != cache_k.device:
             raise ValueError(f"{KERNEL}: operands on several devices: {cache_k.device}, {t.device}")
 
@@ -94,8 +112,12 @@ def permute_append_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version, on ``torch.uint8`` views so that every storage dtype
     moves bitwise: rows ``[0, pos)`` gathered from the read plane, the new
-    rows (cast to the storage dtype) at ``pos``."""
+    rows (cast to the storage dtype) at ``pos`` (a tensor's value, read on
+    the host)."""
     _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
+    pos = int(pos)
+    if not 0 <= pos < cache_k.shape[3]:
+        raise ValueError(f"{KERNEL}: pos {pos} out of range")
     for planes, new in ((cache_k, k_new), (cache_v, v_new)):
         raw = planes.view(torch.uint8)
         raw[1 - parity, layer, :, :pos] = raw[parity, layer, :, :pos].index_select(0, idx.long())
@@ -129,7 +151,7 @@ def permute_append(
     cache_v: torch.Tensor,
     idx: torch.Tensor,  # [BK] int32 destination → source rows (duplicates allowed)
     layer: int,
-    pos: int,  # the new rows land at this position
+    pos,  # the new rows land at this position: an int, or one int64 on the planes' device
     parity: int,  # read plane; the write plane is 1 - parity
     k_new: torch.Tensor,  # [BK, HD] new rows, any strides; on CUDA a pair of CAST_PAIRS
     v_new: torch.Tensor,
@@ -161,8 +183,11 @@ def permute_append_sharded(
     the per-shard body of JAX's ``permute_append_sharded``. The kernel makes
     each global source row local itself (an index whose local row falls
     outside the shard traps). CPU tensors take the plain version; CUDA
-    tensors launch the kernel. Returns (cache_k, cache_v)."""
+    tensors launch the kernel. ``pos`` is an int. Returns (cache_k,
+    cache_v)."""
     global sharded_launches
+    if isinstance(pos, torch.Tensor):
+        raise TypeError(f"{SHARDED_KERNEL}: pos must be an int")
     if cache_k.device.type == "cpu":
         return permute_append_sharded_reference(
             cache_k, cache_v, idx_block, layer, pos, parity, k_new, v_new, beam=beam
@@ -177,7 +202,8 @@ def _kernel_args(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> tup
     """Check the operands of a CUDA launch and return the C entry's
     arguments up to ``parity``; raises where the kernel does not take them.
     The new rows go as they are: pointer, row stride in bytes, element
-    stride, dtype code."""
+    stride, dtype code. A device ``pos`` goes as -1 (its pointer is the
+    entry's last argument)."""
     _check(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new)
     _, n_layer, bk, ctx, hd = cache_k.shape
     isz = cache_k.element_size()
@@ -198,7 +224,8 @@ def _kernel_args(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new) -> tup
         cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_new.stride(0) * rsz, k_new.stride(1), v_new.stride(0) * rsz, v_new.stride(1),
         DTYPE_CODES[k_new.dtype], DTYPE_CODES[cache_k.dtype], int(e4m3_saturates()),
-        idx.data_ptr(), n_layer, bk, ctx, hd, isz, int(layer), int(pos), int(parity),
+        idx.data_ptr(), n_layer, bk, ctx, hd, isz, int(layer),
+        -1 if isinstance(pos, torch.Tensor) else int(pos), int(parity),
     )
 
 
@@ -221,6 +248,7 @@ def _launch(cache_k, cache_v, idx, layer, pos, parity, k_new, v_new, *, beam: in
     rc = _library().permute_append(
         *args, int(beam), cache_k.device.index or 0,
         torch.cuda.current_stream(cache_k.device).cuda_stream,
+        pos.data_ptr() if isinstance(pos, torch.Tensor) else None,
     )
     if rc != 0:
         raise RuntimeError(f"{KERNEL}: launch failed with cudaError {rc}")
@@ -238,7 +266,7 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int] * 3  # row dtype, storage dtype, e4m3_saturates
         + [ctypes.c_void_p]  # idx
         + [ctypes.c_int] * 10  # n_layer, bk, ctx, hd, itemsize, layer, pos, parity, beam, device
-        + [ctypes.c_void_p]  # stream
+        + [ctypes.c_void_p] * 2  # stream; the device pos or NULL
     )
     lib.permute_append.restype = ctypes.c_int
     return lib
