@@ -9,13 +9,16 @@ run by the benchmark's own runs.
 ``readings``: for each seed, in one process, draw the weights, build the
 cell's program, run a short window at the cell's own sizes and load (an
 offline cell: one batch, with no warm-up before it), and judge what it
-served, as a run does; ``--control`` judges it also against the cell's
-control (the reference a precision below, ``reference.control`` in the
+served, as a run does, through the functions of the configuration's model
+family (``families/<family>.py``: ``make_params``, ``judge``);
+``--control`` judges it also against the cell's control (the family's
+reference a precision below; for Whisper ``reference.control`` in the
 configuration), reading the control's numbers on the same prompts and
 tokens; ``--engine`` runs the program with a field of its config changed
 (a lower-precision path of the program's own). One JSON line per seed.
 
-``sweep``: one serve cell's program, then a window at each offered rate,
+``sweep``: one serve cell's program (its weights from the family's
+``make_params``), then a window at each offered rate,
 printing the latency percentiles, the requests that finished and the
 slot pool's dispatch efficiency at each.
 """
@@ -44,16 +47,14 @@ def _value(text: str):
 def readings(args) -> None:
     import torch
 
-    from port_bench.common.weights import make_params
-    from port_bench.reference.judge import judge
-    from port_bench.reference.whisper import Whisper, strict_f32
+    from port_bench.common.precision import strict_f32
 
     engine = dict(kv.split("=", 1) for kv in args.engine)
     engine = {k: _value(v) for k, v in engine.items()}
     for seed in [int(s) for s in args.seeds.split(",")]:
         run = R.prepare(args.cell, seed, "cuda", {"traffic": {"warm": False}, "engine": engine})
         driver = R.load_module(R.BENCH / "drivers" / f"{run.traffic['driver']}.py")
-        run.params = make_params(run.config, seed, run.device)
+        run.params = run.family.make_params(run.config, seed, run.device)
         t0 = time.perf_counter()
         state = driver.setup(run)
         out = driver.measure(run, state, args.seconds, False)
@@ -63,12 +64,8 @@ def readings(args) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         strict_f32()
-        ref = run.config["reference"]
-        ctrl = Whisper(run.params, run.config, **ref["control"]) if args.control else None
-        nums = judge(Whisper(run.params, run.config, weights=ref["weights"], kv=ref["kv"]),
-                     R.sample(out["items"], run.traffic["judge_requests"], seed), run.config,
-                     run.config["engine"]["beam_size"], run.traffic["max_new_tokens"],
-                     run.device, control=ctrl)
+        nums = run.family.judge(run, R.sample(out["items"], run.traffic["judge_requests"], seed),
+                                control=args.control)
         print(json.dumps({"cell": args.cell, "seed": seed, "engine": engine,
                           "window_s": t1 - t0, "judge_s": time.perf_counter() - t1,
                           "failed": out["failed"], **nums, "notes": out["notes"]}), flush=True)
@@ -78,11 +75,9 @@ def readings(args) -> None:
 def sweep(args) -> None:
     import torch
 
-    from port_bench.common.weights import make_params
-
     run = R.prepare(args.cell, args.seed, "cuda")
     driver = R.load_module(R.BENCH / "drivers" / f"{run.traffic['driver']}.py")
-    run.params = make_params(run.config, args.seed, run.device)
+    run.params = run.family.make_params(run.config, args.seed, run.device)
     state = driver.setup(run)
     for rate in [float(r) for r in args.rates.split(",")]:
         run.traffic["rate_per_s"] = rate

@@ -32,19 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from port_bench.common.precision import strict_f32  # noqa: F401  (the reference's setting)
+
 SAMPLE_RATE = 16_000
 N_FFT = 400
 HOP = 160
 N_SAMPLES = 480_000
 N_FRAMES = 3_000
 E4M3_MAX = 448.0
-
-
-def strict_f32() -> None:
-    """float32 products in float32: no TF32 in matmuls or convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 def int16_grid(x: np.ndarray) -> np.ndarray:

@@ -4,20 +4,31 @@
     python3 port_bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is looked up by name in ``BENCHMARK.json`` at the root of the
-checkout; its configuration is ``port_bench/configs/<config>.json``, its
-traffic mix ``port_bench/traffic/<traffic>.json`` (which names its driver,
+checkout; its configuration is ``port_bench/configs/<config>.json``
+(which names its model family, ``port_bench/families/<family>.py``, by a
+top-level ``"family"`` key, ``"whisper"`` where it has none), its traffic
+mix ``port_bench/traffic/<traffic>.json`` (which names its driver,
 ``port_bench/drivers/<driver>.py``), its correctness limits
 ``port_bench/workloads/<cell>.json`` and each per-layer metric
-``port_bench/metrics/<metric>.py``. Adding a cell, a mix or a metric adds
-files and entries; no file here changes.
+``port_bench/metrics/<metric>.py``. Adding a cell, a mix, a metric or a
+model family adds files and entries; no file here changes.
 
-A run draws the weights on the card from ``--seed``, builds the program
-(``whisper_tpu_torch``) through its public entry points, warms up the
-window's shapes (all of which is ``setup_s``), measures for ``--seconds``,
-frees the program, judges a seeded sample of what it served against the
-plain reference (``port_bench/reference/``), and prints one JSON line as
-the last line of standard output; the numbers compared, each beside its
-limit, close both that line (``checks``) and standard error. With
+A family file defines ``check(config)`` (the file's sizes agree with the
+program's model table; ``AssertionError`` otherwise), ``make_params(config,
+seed, device)`` (the weights, drawn from the seed on the device) and
+``judge(run, items, control=False)`` (the family's plain reference built
+from ``run.params`` and ``run.config``, the sampled ``items`` judged by it:
+the numbers the cell's limits name, and with ``control`` also
+``control.<name>``, the control's).
+
+A run draws the weights on the card from ``--seed`` with its family's
+``make_params``, builds the program (``whisper_tpu_torch``) through its
+public entry points, warms up the window's shapes (all of which is
+``setup_s``), measures for ``--seconds``, frees the program, judges a
+seeded sample of what it served with its family's ``judge``, and prints
+one JSON line as the last line of standard output; the numbers compared,
+each beside its limit, close both that line (``checks``) and standard
+error. With
 ``--trace 1`` a bounded slice at the window's start is profiled and the
 line carries the cell's per-layer metrics instead of its end-to-end ones.
 
@@ -38,6 +49,7 @@ import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 from typing import Callable, Optional  # noqa: E402
@@ -45,6 +57,7 @@ from typing import Callable, Optional  # noqa: E402
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "whisper_tpu")
+FAMILY = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")  # a module's name: no dot, no slash
 
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -60,6 +73,17 @@ def load_module(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family_module(config: dict):
+    """The module of the configuration's model family,
+    ``families/<family>.py``; a name that is not a module's, or that has no
+    file, stops the run with one line."""
+    family = config.get("family", "whisper")
+    path = BENCH / "families" / f"{family}.py"
+    if not (isinstance(family, str) and FAMILY.match(family) and path.is_file()):
+        raise SystemExit(f"run.py: no model family {family!r} (port_bench/families/<family>.py)")
+    return load_module(path)
 
 
 def forbidden_modules() -> list:
@@ -85,6 +109,7 @@ class Run:
     end_to_end: list
     per_layer: list
     chips: int
+    family: object = None
     engine_overrides: dict = dataclasses.field(default_factory=dict)
     params: Optional[dict] = None
     log: Callable = print
@@ -108,7 +133,8 @@ def prepare(cell: str, seed: int, device, overrides: Optional[dict] = None) -> R
     layer = [m for m in bench["per_layer"] if _applies(m, cell, reported)]
     return Run(cell=cell, config=config, traffic=traffic, limits=limits, seed=int(seed),
                device=torch.device(device), end_to_end=e2e, per_layer=layer,
-               chips=int(spec["chips"]), engine_overrides=overrides.get("engine", {}),
+               chips=int(spec["chips"]), family=family_module(config),
+               engine_overrides=overrides.get("engine", {}),
                log=lambda msg: print(f"[port_bench] {msg}", file=sys.stderr, flush=True))
 
 
@@ -129,13 +155,11 @@ def execute(run: Run, seconds: float, trace: bool, t_start: float = T_START) -> 
     import torch
 
     from port_bench.common import trace as trace_mod
-    from port_bench.common.weights import make_params
-    from port_bench.reference import judge as judge_mod
-    from port_bench.reference.whisper import Whisper, strict_f32
+    from port_bench.common.precision import strict_f32
 
     driver = load_module(BENCH / "drivers" / f"{run.traffic['driver']}.py")
     cuda = run.device.type == "cuda"
-    run.params = make_params(run.config, run.seed, run.device)
+    run.params = run.family.make_params(run.config, run.seed, run.device)
     state = driver.setup(run)
     if trace:
         trace_mod.warm()
@@ -155,12 +179,8 @@ def execute(run: Run, seconds: float, trace: bool, t_start: float = T_START) -> 
     run.log(f"window done: {json.dumps(out['notes'])}")
 
     strict_f32()
-    ref = run.config["reference"]
     t = time.perf_counter()
-    numbers = judge_mod.judge(
-        Whisper(run.params, run.config, weights=ref["weights"], kv=ref["kv"]),
-        sample(out["items"], run.traffic["judge_requests"], run.seed), run.config,
-        run.config["engine"]["beam_size"], run.traffic["max_new_tokens"], run.device)
+    numbers = run.family.judge(run, sample(out["items"], run.traffic["judge_requests"], run.seed))
     run.log(f"reference {time.perf_counter() - t:.3f} s: {json.dumps(numbers)}")
 
     checks = {"failed": {"value": out["failed"], "limit": 0}}

@@ -24,14 +24,7 @@ def test_top_level_keys():
 def test_config_file(entry):
     cfg = json.loads((run.ROOT / entry["file"]).read_text())
     assert cfg["source"] == entry["source"] and cfg["reduced"] == entry["reduced"]
-    from whisper_tpu_torch.config import MODEL_DIMS
-
-    dims = MODEL_DIMS[cfg["program_model"]]
-    assert (dims.n_audio_state, dims.n_audio_layer, dims.n_text_layer, dims.n_audio_head,
-            dims.n_mels, dims.n_vocab, dims.n_audio_ctx, dims.n_text_ctx) == (
-        cfg["d_model"], cfg["encoder_layers"], cfg["decoder_layers"],
-        cfg["encoder_attention_heads"], cfg["num_mel_bins"], cfg["vocab_size"],
-        cfg["max_source_positions"], cfg["max_target_positions"])
+    run.family_module(cfg).check(cfg)  # the sizes against the program's table, by family
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda e: e["name"])

@@ -28,6 +28,19 @@ def test_percentile_over_all_requests_failures_infinite():
     assert stats.percentile(lat_f, 50) == 50.0
 
 
+def test_serve_arrivals_fill_the_window_alike_for_every_seed():
+    # The open loop offers every seed the same arrivals; the seed draws
+    # only what arrives (weights, utterances).
+    drv = run.load_module(run.BENCH / "drivers" / "open_loop.py")
+    due = drv.arrivals(5.5, 51.0)
+    assert len(due) == 280 and due[0] == 0.0 and 50.0 < due[-1] < 51.0
+    assert (due[1:] > due[:-1]).all()
+    assert (drv.arrivals(5.5, 51.0) == due).all()
+    gaps = due[1:] - due[:-1]
+    assert gaps.max() > 5 * sorted(gaps)[len(gaps) // 2]  # exponential quantiles, not even spacing
+    assert not (gaps[1:] >= gaps[:-1]).all() and not (gaps[1:] <= gaps[:-1]).all()  # shuffled
+
+
 def test_merged_intervals_of_streams():
     busy = [(1.0, 4.0), (2.0, 6.0), (12.0, 13.0)]  # two streams overlap on [2, 4)
     assert stats.merged(busy) == [(1.0, 6.0), (12.0, 13.0)]
