@@ -273,6 +273,29 @@ Phases, in order; any failure exits non-zero before the last line:
    of the fused row held layer by layer against K3's plain version on the
    same inputs (planes bitwise, attention 4 bf16 ulps).
 
+12. The routed experts of Uni-MoE-2.0-Omni (``ops/moe_expert``,
+   ``csrc/moe_expert.cu``), at its published widths (d 3584, f 18944, 4
+   routed experts):
+12a. The wrapper against its plain version on the same card tensors at the
+   decode's shape (64 tokens) and the cell's longest prefill (14,848
+   tokens), routed by ``models/audio_lm.route`` on a random f32 gate:
+   every routed row of y within 5e-3 (relative L2) of the plain version's,
+   rows routed nowhere exactly 0, counts equal, 2 launches counted a call;
+   the same test run on a routing with one expert's rows dropped must fail
+   it. Times (the wrapper, each kernel from a profiler trace, the plain
+   version, the nearest library composite: bf16 matmuls of each expert's
+   rows and ``index_add_``) beside the bound. ``--moe --sweep``: every
+   pair of the kernel table's variants at both shapes.
+12b. The main path: ``create_engine(MONOLITH, EngineConfig(model=
+   "uni-moe-2.0-omni", max_new_tokens=32, ...))`` with random weights,
+   ``transcribe_batch`` of 64 clips of 4–20 s, twice after a warm batch,
+   launch counts set to 0 just before each: 2 launches per layer of the
+   prefill and of each step, every step replayed from its graph; the
+   second run under the profiler, whose ``moe_expert*`` kernels equal its
+   count; the two runs' tokens equal and well formed.
+
+    python3 chip_smoke.py --moe [--sweep]   # phases 1, 2 (its kernels) and 12 alone
+
 Then, each on a line of its own: the kernels' JSON record, the card's name
 and power limit, and the result line ``{"ok": true, "device": {...}}``.
 """
@@ -3570,6 +3593,286 @@ def k5_times(torch, mel_fused) -> dict:
     return out
 
 
+MOE_BATCH = 64  # phase 12: rows of the audio LM's batch, its decode's tokens
+MOE_PREFILL = 64 * 232  # phase 12: tokens of the cell's longest prefill (64 rows × 232 positions)
+MOE_BUDGET = 32  # phase 12b: new tokens a row
+MOE_ROW_TOL = 5e-3  # phase 12a: per-row relative L2 error of the routed experts' output
+
+
+def _moe_inputs(torch, audio_lm, dims, n: int, seed: int) -> tuple:
+    """``n`` bf16 rows at the published width and their routing by a random
+    f32 gate through ``models/audio_lm.route`` (top-p 0.7, at most 2, the
+    null expert among the choices)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = dims.n_state
+    x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gate = torch.randn((d, dims.n_routed + dims.n_null), generator=gen, device="cuda") * d ** -0.5
+    expert, weight, _, _ = audio_lm.route(gate, x, dims)
+    return x, expert, weight
+
+
+def _moe_bound_ms(counts: list, d: int, f: int) -> tuple:
+    """The least time of the routed work: the larger of each touched
+    expert's three matrices (bf16) plus each row's d inputs (bf16) and d
+    outputs (f32) over the card's bandwidth, and 6·d·f FLOPs a row over its
+    bf16 peak (``port_bench/common/moe_roofline``'s formula)."""
+    touched, rows = sum(1 for c in counts if c), sum(counts)
+    by_bytes = (touched * 3 * d * f * 2 + rows * d * 6) / PEAK_BYTES * 1e3
+    by_ops = rows * 6 * d * f / PEAK_BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _moe_composite(torch, x, expert, weight, wg, wu, wd):
+    """The nearest library composite (bf16 products of each expert's rows,
+    PyTorch's own kernels): index lists made on the host first, so the
+    timed call does no host read."""
+    e = wg.shape[0]
+    k = expert.shape[1]
+    idx = [(expert.reshape(-1) == i).nonzero()[:, 0] for i in range(e)]
+    toks = [(p // k, weight.reshape(-1)[p].to(torch.bfloat16)[:, None]) for p in idx]
+
+    def run():
+        y = torch.zeros(x.shape, dtype=torch.bfloat16, device=x.device)
+        for i, (t, w) in enumerate(toks):
+            if t.numel():
+                xe = x[t]
+                h = torch.nn.functional.silu(xe @ wg[i]) * (xe @ wu[i])
+                y.index_add_(0, t, (h @ wd[i]) * w)
+        return y
+
+    return run
+
+
+def _synced_ms(torch, fn, reps: int = 3) -> float:
+    """Wall ms of one call of ``fn`` that reads the card from the host (the
+    plain version: ``nonzero``), synchronised before and after; median."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _moe_kernel_ms(torch, moe_expert, fn) -> dict:
+    """Device ms of each ``moe_expert*`` kernel of one call of ``fn``
+    (profiler, one traced call after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.name.startswith(moe_expert.KERNEL_SYMBOL):
+            out[ev.name] = out.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    return out
+
+
+def phase_moe_kernels(torch, moe_expert, audio_lm, dims, sweep: bool) -> dict:
+    """Phase 12a: the routed experts' kernels against their plain version on
+    the same card tensors, at the decode's shape (64 tokens) and the
+    cell's longest prefill (14,848 tokens), each row of y within
+    ``MOE_ROW_TOL`` (relative L2) of the plain version's, rows routed
+    nowhere exactly 0, the counts equal; then a wrong routing (one
+    routed expert's rows dropped) must fail the same test. Times: the
+    wrapper, each kernel (profiler), the plain version, the nearest
+    library composite and the bound. ``sweep``: every pair of variants
+    of the kernel table at both shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    d, f, e = dims.n_state, dims.routed_width, dims.n_routed
+
+    def w(shape, fan):
+        return (torch.randn(shape, generator=gen, device="cuda") * fan ** -0.5).to(torch.bfloat16)
+
+    wg, wu, wd = w((e, d, f), d), w((e, d, f), d), w((e, f, d), f)
+    rec = {"name": "moe_expert", "route": "cuda", "source": "whisper_tpu_torch/csrc/moe_expert.cu",
+           "replaces": None, "bound_by": {}, "launches": None}
+    for label, n, seed in (("decode", MOE_BATCH, 1), ("prefill", MOE_PREFILL, 2)):
+        x, expert, weight = _moe_inputs(torch, audio_lm, dims, n, seed)
+        before = moe_expert.launches
+        y, counts = moe_expert.moe_experts(x, expert, weight, wg, wu, wd)
+        torch.cuda.synchronize()
+        if moe_expert.launches != before + 2:
+            fail(f"MoE {label}: {moe_expert.launches - before} launches counted, expected 2")
+        y_ref, counts_ref = moe_expert.moe_experts_reference(x, expert, weight, wg, wu, wd)
+        routed = (expert < e).any(1)
+        err = ((y - y_ref).norm(dim=1) / y_ref.norm(dim=1).clamp(min=1e-30))[routed].max().item()
+        if counts.tolist() != counts_ref.tolist() or err > MOE_ROW_TOL or bool(y[~routed].any()):
+            fail(f"MoE {label}: counts {counts.tolist()} against {counts_ref.tolist()}, "
+                 f"worst row error {err:.3g} (limit {MOE_ROW_TOL}), rows routed nowhere non-zero: "
+                 f"{bool(y[~routed].any())}")
+        # The same test must catch a kernel that leaves one expert's rows out.
+        wrong = torch.where(expert == int(counts.argmax()), e, expert)
+        y_bad, _ = moe_expert.moe_experts(x, wrong, weight, wg, wu, wd)
+        bad = ((y_bad - y_ref).norm(dim=1) / y_ref.norm(dim=1).clamp(min=1e-30))[routed].max().item()
+        if bad <= MOE_ROW_TOL:
+            fail(f"MoE {label}: an expert's rows left out reads {bad:.3g}, within the limit")
+        cnt = counts.tolist()
+        bound, by = _moe_bound_ms(cnt, d, f)
+
+        def call(x=x, expert=expert, weight=weight):
+            return moe_expert.moe_experts(x, expert, weight, wg, wu, wd)
+
+        per_kernel = _moe_kernel_ms(torch, moe_expert, call)
+        ms = time_ms(call, inner=10 if label == "decode" else 2, reps=5 if label == "decode" else 3)
+        plain_ms = _synced_ms(torch, lambda: moe_expert.moe_experts_reference(x, expert, weight, wg, wu, wd),
+                              reps=1 if label == "prefill" else 3)
+        lib_ms = time_ms(_moe_composite(torch, x, expert, weight, wg, wu, wd), inner=2, reps=3)
+        log(f"  MoE {label} ({n} tokens, rows {cnt}): worst row error {err:.3g} (an expert left out: "
+            f"{bad:.3g}); kernels {ms:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in per_kernel.items())}), "
+            f"plain (f32) {plain_ms:.4f} ms, library composite (bf16 matmuls + index_add) {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}): {100 * bound / ms:.1f}%")
+        rec[label] = {"tokens": n, "rows": cnt, "max_row_err": err, "ms": ms, "kernel_ms": per_kernel,
+                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+        if sweep:
+            small = n * expert.shape[1] <= moe_expert.SMALL
+            keep = moe_expert.VARIANTS[small]
+            gated = [v for v in range(16) if _variant_or_none(moe_expert, v) and moe_expert.variant(v)[0]]
+            down = [v for v in range(16) if _variant_or_none(moe_expert, v) and not moe_expert.variant(v)[0]]
+            times = {}
+            for vg in gated:
+                for vd in down:
+                    moe_expert.VARIANTS[small] = (vg, vd)
+                    try:
+                        times[f"{vg},{vd}"] = _moe_kernel_ms(torch, moe_expert, call)
+                    except (ValueError, RuntimeError) as ex:
+                        times[f"{vg},{vd}"] = str(ex)
+            moe_expert.VARIANTS[small] = keep
+            log(f"  MoE {label} sweep (gate/up, down variants → kernel ms): {json.dumps(times)}")
+            rec[label]["sweep"] = times
+        del x, expert, weight, y, y_ref, y_bad
+    rec["ms"], rec["bound_ms"], rec["plain_ms"], rec["library_ms"] = (
+        rec["decode"]["ms"], rec["decode"]["bound_ms"], rec["decode"]["plain_ms"], rec["decode"]["library_ms"])
+    return rec
+
+
+def _variant_or_none(moe_expert, v: int) -> bool:
+    try:
+        moe_expert.variant(v)
+        return True
+    except ValueError:
+        return False
+
+
+def moe_utterances(n: int = MOE_BATCH) -> list:
+    """``n`` clips with lengths spread evenly over 4–20 s."""
+    return [synthetic_utterance(4.0 + 16.0 * i / (n - 1), i % 7) for i in range(n)]
+
+
+def phase_moe_path(torch, moe_expert, audio_lm, greedy, graph, EngineConfig, EngineType,
+                   create_engine) -> dict:
+    """Phase 12b: Uni-MoE-2.0-Omni's main path at the published widths:
+    ``create_engine(MONOLITH, EngineConfig(model="uni-moe-2.0-omni",
+    max_new_tokens=MOE_BUDGET, ...))`` with random weights, then
+    ``transcribe_batch`` of 64 clips of 4–20 s, twice, each with the
+    launch counts set to 0 just before and read just after: the routed
+    experts' wrapper must count 2 launches per layer of the prefill and
+    of every step (graph replays included), every step after the warm ones
+    replayed; the second run under the profiler, whose ``moe_expert*``
+    kernels must equal that run's count; both runs' tokens equal (the
+    kernels' sums do not depend on the order of their atomics) and well
+    formed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.config import AUDIO_LM_DIMS
+
+    dims = AUDIO_LM_DIMS["uni-moe-2.0-omni"]
+    cfg = EngineConfig(model="uni-moe-2.0-omni", max_new_tokens=MOE_BUDGET,
+                       lm_prefix_tokens=tuple(range(100, 116)), lm_suffix_tokens=tuple(range(200, 216)))
+    t0 = time.perf_counter()
+    engine = create_engine(EngineType.MONOLITH, cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  engine with random weights in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    utts = moe_utterances()
+    engine.transcribe_batch(utts)  # warm: the captures of the step
+    runs = []
+    for traced in (False, True):
+        torch.cuda.synchronize()
+        moe_expert.launches, steps0, replays0 = 0, greedy.steps, graph.replays
+        t0 = time.perf_counter()
+        if traced:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                results = engine.transcribe_batch(utts)
+                torch.cuda.synchronize()
+        else:
+            results = engine.transcribe_batch(utts)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, steps, replays = moe_expert.launches, greedy.steps - steps0, graph.replays - replays0
+        if launches != 2 * dims.n_layer * (1 + steps):
+            fail(f"MoE path: {launches} launches for {steps} steps, expected {2 * dims.n_layer * (1 + steps)}")
+        if replays != steps:
+            fail(f"MoE path: {replays} of {steps} steps replayed")
+        rec = {"wall_s": wall, "launches": launches, "steps": steps, "replays": replays}
+        if traced:
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and ev.name.startswith(moe_expert.KERNEL_SYMBOL)]
+            if len(names) != launches:
+                fail(f"MoE path: {len(names)} moe_expert kernels in the trace, {launches} counted")
+            rec["traced_kernels"] = len(names)
+        for r in results:
+            toks = np.asarray(r.tokens)
+            if (toks.shape != (MOE_BUDGET,) or not 1 <= r.length <= MOE_BUDGET or toks.min() < 0
+                    or toks.max() >= dims.n_vocab or (toks[r.length:] != dims.stop).any()):
+                fail(f"MoE path: malformed result {toks[:8]}…, length {r.length}")
+        runs.append(([np.asarray(r.tokens) for r in results], rec))
+        log(f"  MoE path run {'traced' if traced else 'untraced'}: {wall:.2f} s, {steps} steps "
+            f"({replays} replayed), moe_expert launches {launches}"
+            + (f", {rec['traced_kernels']} moe_expert kernels in the trace" if traced else ""))
+    if not all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0])):
+        fail("MoE path: two runs of the same batch gave different tokens")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  MoE path: both runs' tokens equal; max_memory_allocated {peak:.2f} GB")
+    del engine
+    return {"untraced": runs[0][1], "traced": runs[1][1], "peak_gb": peak}
+
+
+def moe_only(sweep: bool) -> None:
+    """``--moe [--sweep]``: phases 1, 2 (the routed experts' kernels only)
+    and 12; the last line is the kernels' JSON record."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    from whisper_tpu_torch.config import EngineConfig
+    from whisper_tpu_torch.decode import graph, greedy
+    from whisper_tpu_torch.engine import EngineType, create_engine
+    from whisper_tpu_torch.models import audio_lm
+    from whisper_tpu_torch.ops import build, moe_expert
+
+    log(f"[1] card: {card_line()}")
+    t0 = time.perf_counter()
+    for name, (secs, ptxas) in build.build([moe_expert.KERNEL]).items():
+        usage = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[2] {name}.cu: nvcc {secs:.2f} s; " + " | ".join(usage))
+    log(f"  built in {time.perf_counter() - t0:.2f} s")
+    print(json.dumps({"kernels": [phase_moe(torch, moe_expert, audio_lm, greedy, graph, EngineConfig,
+                                            EngineType, create_engine, sweep)]}))
+
+
+def phase_moe(torch, moe_expert, audio_lm, greedy, graph, EngineConfig, EngineType, create_engine,
+              sweep: bool = False) -> dict:
+    from whisper_tpu_torch.config import AUDIO_LM_DIMS
+
+    log("[12a] the routed experts' kernels against their plain version: Uni-MoE-2.0-Omni's widths")
+    rec = phase_moe_kernels(torch, moe_expert, audio_lm, AUDIO_LM_DIMS["uni-moe-2.0-omni"], sweep)
+    log("[12b] Uni-MoE-2.0-Omni's main path: 64 clips of 4-20 s, greedy, bf16, random weights")
+    path = phase_moe_path(torch, moe_expert, audio_lm, greedy, graph, EngineConfig, EngineType,
+                          create_engine)
+    rec["launches"] = path["untraced"]["launches"]
+    rec["path"] = path
+    return rec
+
+
 def sweep_tree(tree: str) -> None:
     """``--sweep-tree DIR``: only the sweeps of K2 (:func:`k2_sweep`) and K3
     (:func:`k3_sweep`) and K5's times (:func:`k5_times`), with the
@@ -3591,6 +3894,8 @@ def sweep_tree(tree: str) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--moe"]:
+        return moe_only("--sweep" in sys.argv[2:])
     if sys.argv[1:2] == ["--sweep-tree"]:
         return sweep_tree(sys.argv[2])
     if sys.argv[1:2] == ["--k1-tree"]:
@@ -3618,7 +3923,7 @@ def main() -> None:
     log("[2] build")
     t0 = time.perf_counter()
     kernels = (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast)
-    built = build.build([k.KERNEL for k in kernels])
+    built = build.build([k.KERNEL for k in kernels] + ["moe_expert"])
     log(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (secs, ptxas) in built.items():
         usage = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
@@ -3744,6 +4049,14 @@ def main() -> None:
     ablate_rec = phase_ablate(torch, kernels, beam, ablate_step, gather_attend)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    t12 = time.perf_counter()
+    from whisper_tpu_torch.decode import graph, greedy
+    from whisper_tpu_torch.models import audio_lm
+    from whisper_tpu_torch.ops import moe_expert
+
+    moe = phase_moe(torch, moe_expert, audio_lm, greedy, graph, EngineConfig, EngineType, create_engine)
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
     names = ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
     for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5, k6)):
         rec["tools_launches"] = {
@@ -3761,7 +4074,7 @@ def main() -> None:
     k1["f32"]["launches"] = spec["8a_greedy"]["launches"]["K1"]  # the f32 main path: 8a's greedy batch
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5, k6]}))
+    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5, k6, moe]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -114,6 +114,53 @@ MODEL_DIMS["dev.en"] = _dims(64, 2, 2, n_vocab=N_VOCAB_ENGLISH)
 
 
 @dataclasses.dataclass(frozen=True)
+class AudioLMDims:
+    """A decoder-only language model over a Whisper encoder's output: the
+    audio path of an omni model (Uni-MoE-2.0-Omni, HIT-TMG's
+    ``config.json``). The tower's first ``audio_ctx`` positions are
+    mean-pooled in groups of ``pool`` and projected to ``n_state``; the
+    language model is RMSNorm, GQA with RoPE and q/k/v biases, and in every
+    layer a mixture of experts: ``n_shared`` SwiGLU experts of
+    ``shared_width`` on every token, ``n_routed`` of ``routed_width`` and
+    ``n_null`` that return zero, chosen by an f32 softmax gate over the
+    routed and null experts (the fewest whose probabilities reach
+    ``top_p``, at most ``top_k``), weighted by their probabilities."""
+
+    tower: ModelDims = dataclasses.field(default_factory=ModelDims)
+    n_state: int = 3584
+    n_layer: int = 28
+    n_head: int = 28
+    n_kv_head: int = 4
+    head_dim: int = 128
+    n_vocab: int = 152_064
+    n_routed: int = 4
+    n_null: int = 1
+    n_shared: int = 2
+    routed_width: int = 18_944
+    shared_width: int = 2_368
+    top_p: float = 0.7
+    top_k: int = 2
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-6
+    audio_ctx: int = 1_000  # tower positions read: 20 s
+    pool: int = 5  # tower positions per LM position
+    stop: int = 151_645  # <|im_end|>
+    n_ctx: int = 128_000
+
+
+AUDIO_LM_DIMS = {
+    "uni-moe-2.0-omni": AudioLMDims(tower=MODEL_DIMS["large-v3"]),
+    # CPU tests: the same shape at a small size (GQA 7:1, 2 layers, a
+    # 128-mel tower of 2 layers).
+    "uni-moe-dev": AudioLMDims(
+        tower=dataclasses.replace(MODEL_DIMS["dev"], n_mels=128, n_vocab=N_VOCAB_LARGE_V3),
+        n_state=112, n_layer=2, n_head=7, n_kv_head=1, head_dim=16, n_vocab=512,
+        routed_width=64, shared_width=24, stop=511,
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """One config object for the whole stack.
 
@@ -220,6 +267,10 @@ class EngineConfig:
     # (wav_util.cpp:122-126). Off by default: real checkpoints expect the
     # true multilingual token IDs and a sane downmix.
     reference_quirks: bool = False
+    # An audio language model (AUDIO_LM_DIMS): the text ids before and
+    # after the audio positions of every prompt (its chat template's ids).
+    lm_prefix_tokens: Tuple[int, ...] = ()
+    lm_suffix_tokens: Tuple[int, ...] = ()
 
     def dims(self) -> ModelDims:
         return MODEL_DIMS[self.model]

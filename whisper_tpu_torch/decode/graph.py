@@ -33,11 +33,11 @@ one batch shape, or the prompt lengths of one budget, cost graphs and no
 more buffers; every capture of an engine draws on one memory pool.
 
 The captured step opens no span and bumps no counter of its own: those
-would run only once, at capture. K2's ``launches`` (``ops/fused_step``,
-the one hand-written kernel a captured step runs) counts what the capture
-launched; that is taken back, and each replay adds it again, so it keeps
-counting launches on the card. :data:`captures` and :data:`replays` count
-this module's work.
+would run only once, at capture. The ``launches`` of the hand-written
+kernels a captured step runs (K2, ``ops/fused_step``; the routed experts,
+``ops/moe_expert``) count what the capture launched; that is taken back,
+and each replay adds it again, so they keep counting launches on the card.
+:data:`captures` and :data:`replays` count this module's work.
 """
 
 from __future__ import annotations
@@ -47,11 +47,12 @@ from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
-from whisper_tpu_torch.ops import fused_step
+from whisper_tpu_torch.ops import fused_step, moe_expert
 
 WARM_STEPS = 2  # eager steps of an entry before its first capture
 MAX_ENTRIES = 4  # shape keys an engine keeps captured
 WINDOW = 32  # a captured step's read window grows in steps of this many positions
+COUNTED = (fused_step, moe_expert)  # kernel modules whose ``launches`` replays add to
 
 # Graphs captured and steps replayed in this process.
 captures = 0
@@ -74,7 +75,7 @@ class Entry:
         self.buffers = owner._buffers[share]
         self._keep = keep  # what the captured steps read besides the buffers
         self._warm = 0
-        self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, int]] = {}
+        self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, list]] = {}
 
     def step(self, run: Callable[[Hashable], None], variant: Hashable) -> bool:
         """One step: ``run(variant)`` eagerly while the entry warms up or
@@ -89,7 +90,8 @@ class Entry:
             self._capture(run, variant)
         graph, launched = self._graphs[variant]
         graph.replay()
-        fused_step.launches += launched
+        for mod, n in launched:
+            mod.launches += n
         replays += 1
         return True
 
@@ -102,7 +104,7 @@ class Entry:
         owner = self._owner
         if owner._pool is None:
             owner._pool = torch.cuda.graph_pool_handle()
-        before = fused_step.launches
+        before = [mod.launches for mod in COUNTED]
         graph = torch.cuda.CUDAGraph()
         current = torch.cuda.current_stream()
         side = torch.cuda.Stream(current.device)
@@ -116,8 +118,10 @@ class Entry:
             finally:
                 graph.capture_end()
         current.wait_stream(side)
-        launched, fused_step.launches = fused_step.launches - before, before
-        self._graphs[variant] = (graph, launched)
+        launched = [(mod, mod.launches - b) for mod, b in zip(COUNTED, before)]
+        for mod, b in zip(COUNTED, before):
+            mod.launches = b
+        self._graphs[variant] = (graph, [(mod, n) for mod, n in launched if n])
         captures += 1
 
 

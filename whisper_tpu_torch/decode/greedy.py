@@ -264,3 +264,127 @@ def _graph_step(params, st, cross, dims, compute_dtype, pick, eot: int, return_l
         st.pos.add_(1)
 
     return run
+
+
+def lm_greedy_decode(
+    params: Params,
+    x: torch.Tensor,  # [B, P, D] prefix embeddings, left-padded
+    pad: torch.Tensor,  # [B] int64 on x's device: each row's left padding
+    dims,  # config.AudioLMDims
+    max_new_tokens: int,
+    counters: Optional[torch.Tensor] = None,  # models.audio_lm.new_counters
+    graphs=None,  # decode.graph.StepGraphs: replay the step as a CUDA graph on the card
+    routes: Optional[dict] = None,  # receives "prefill" and "step": the routing of every position
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy decoding of an audio language model (``models/audio_lm.py``)
+    from its prefix → (tokens [B, max_new_tokens]: the generated ids, the
+    stop id ``dims.stop`` after a row's first; lengths [B]: generated ids up
+    to and including the first stop, else the budget).
+
+    The prefill (span ``lm.prefill``) writes the prefix's keys and values
+    into one cache of ``P + max_new_tokens`` positions; every row's next
+    token then lands at the same cache index. Given ``graphs``, each step
+    after the first pick is a replay of a captured graph, as in
+    :func:`greedy_decode`: the step reads its cache index from a device
+    tensor it advances and a window of the cache under a mask. The eager
+    steps read the same windows, so both run the same shapes. Given
+    ``routes``, its ``"prefill"`` (int8 [L, B, P, K]) and ``"step"`` (int8
+    [L, B, max_new_tokens, K]; index g: the step that fed generated token g)
+    are set to the routing of every position (``audio_lm.route_codes``),
+    on the device; a captured step always records its own."""
+    from whisper_tpu_torch.models import audio_lm
+
+    global steps
+    b, p, _ = x.shape
+    total = p + max_new_tokens
+    device = x.device
+    stop = dims.stop
+    entry = None
+    if graphs is not None:
+        share = ("lm", b, total, x.dtype)
+        key = share + (p, id(params), id(counters))
+
+        def buffers():
+            return types.SimpleNamespace(
+                cache=audio_lm.init_cache(dims, b, total, x.dtype, device),
+                tokens=torch.zeros((b, max_new_tokens), dtype=torch.long, device=device),
+                finished=torch.zeros((b,), dtype=torch.bool, device=device),
+                pos=torch.zeros((1,), dtype=torch.long, device=device),
+                pad=torch.zeros((b,), dtype=torch.long, device=device),
+                routes=torch.full((dims.n_layer, b, max_new_tokens, dims.top_k), -1,
+                                  dtype=torch.int8, device=device),
+            )
+
+        entry = graphs.entry(key, buffers, keep=(params, counters), share=share)
+
+    with annotate("decode.loop", device=device) as loop:
+        cache = entry.buffers.cache if entry is not None else audio_lm.init_cache(
+            dims, b, total, x.dtype, device)
+        pre_routes = step_routes = None
+        if routes is not None:
+            pre_routes = torch.empty((dims.n_layer, b, p, dims.top_k), dtype=torch.int8,
+                                     device=device)
+            step_routes = entry.buffers.routes if entry is not None else torch.full(
+                (dims.n_layer, b, max_new_tokens, dims.top_k), -1, dtype=torch.int8, device=device)
+            routes.update(prefill=pre_routes, step=step_routes)
+        with annotate("lm.prefill", device=device, rows=b, prefix_len=p):
+            logits = audio_lm.prefill(params, x, pad, cache, dims, counters, pre_routes)
+        tokens = torch.full((b, max_new_tokens), stop, dtype=torch.long, device=device)
+        tokens[:, 0] = torch.argmax(logits, dim=-1)
+        finished = tokens[:, 0] == stop
+        g = 1  # the next generated index
+        graphed = 0
+        if entry is not None:
+            st = entry.buffers
+            st.tokens.copy_(tokens)
+            st.finished.copy_(finished)
+            st.pad.copy_(pad)
+            st.pos.fill_(p)
+            st.routes.fill_(-1)
+            run = _lm_graph_step(params, st, dims, p, counters)
+            while g < max_new_tokens and not all_on_host(st.finished):
+                with annotate("decode.step"):
+                    graphed += entry.step(run, window(p + g - 1, total))
+                    steps += 1
+                g += 1
+            tokens = st.tokens.clone()
+        else:
+            at = torch.full((1,), p, dtype=torch.long, device=device)
+            while g < max_new_tokens and not all_on_host(finished):
+                with annotate("decode.step"):
+                    logits = audio_lm.step(params, tokens[:, g - 1], at, pad, cache,
+                                           window(p + g - 1, total), dims, counters, step_routes,
+                                           at - p)
+                    steps += 1
+                    nxt = torch.where(finished, stop, torch.argmax(logits, dim=-1))
+                    tokens[:, g] = nxt
+                    finished = finished | (nxt == stop)
+                    at.add_(1)
+                g += 1
+        is_stop = tokens == stop
+        first = torch.argmax(is_stop.to(torch.int8), dim=1)
+        lengths = torch.where(is_stop.any(dim=1), first + 1, max_new_tokens)
+        loop.set(steps=g - 1, graphed=graphed)
+    return tokens, lengths
+
+
+def _lm_graph_step(params, st, dims, p: int, counters):
+    """The audio LM's step on static buffers ``st`` at the cache index held
+    in ``st.pos`` (the token fed is generated index ``pos - p``; the pick
+    lands one further), which it advances, and records its routing in
+    ``st.routes``. ``run(w)`` reads the cache's first ``w`` positions."""
+    from whisper_tpu_torch.models import audio_lm
+
+    b = st.tokens.shape[0]
+
+    def run(w: int) -> None:
+        g = st.pos - p
+        fed = g.expand(b)[:, None]
+        logits = audio_lm.step(params, st.tokens.gather(1, fed)[:, 0], st.pos, st.pad, st.cache,
+                               w, dims, counters, st.routes, g)
+        nxt = torch.where(st.finished, dims.stop, torch.argmax(logits, dim=-1))
+        st.tokens.scatter_(1, fed + 1, nxt[:, None])
+        st.finished.logical_or_(nxt == dims.stop)
+        st.pos.add_(1)
+
+    return run

@@ -81,7 +81,13 @@ import torch
 
 from whisper_tpu_torch.audio.vad import speech_segments
 from whisper_tpu_torch.audio.wav import read_pcm_f32, read_wav, read_wav_legacy
-from whisper_tpu_torch.config import MODEL_DIMS, N_SAMPLES, EngineConfig, ModelDims
+from whisper_tpu_torch.config import (
+    AUDIO_LM_DIMS,
+    MODEL_DIMS,
+    N_SAMPLES,
+    EngineConfig,
+    ModelDims,
+)
 from whisper_tpu_torch.decode.align import (
     alignment_matrix,
     default_alignment_mask,
@@ -137,6 +143,24 @@ def _samples_f32(x: torch.Tensor) -> torch.Tensor:
     """Shipped samples → float32 on their device: int16 with the exact
     inverse of wav.py's int16/32768 read scale, float32 as they are."""
     return x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
+
+
+def to_int16(x: np.ndarray) -> np.ndarray:
+    """Float samples in [-1, 1) → int16, to the nearest step of wav.py's
+    1/32768 scale (exact for int16-sourced audio), clipped."""
+    q = np.multiply(x, 32768.0, dtype=np.float32)
+    np.rint(q, out=q)
+    np.clip(q, -32768, 32767, out=q)
+    return q.astype(np.int16)
+
+
+def encode_samples(params: Params, samples: torch.Tensor, filters: torch.Tensor, dims,
+                   compute_dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """Samples on the device → log-mel (``dims.n_mels`` bins, float32) →
+    the encoder's output, under the span ``engine.encode``."""
+    with annotate("engine.encode", device=samples.device, rows=samples.shape[0]):
+        mel = log_mel_spectrogram(samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32)
+        return encode(params, mel.to(compute_dtype), dims, tp=tp)
 
 
 class EngineType(enum.IntEnum):
@@ -434,13 +458,8 @@ class Engine:
             (self._draft_params, self._draft_dims, self._draft_filters) if draft
             else (self.assets.params, self.dims, self._filters)
         )
-        with annotate("engine.encode", device=samples.device, rows=samples.shape[0]):
-            mel = log_mel_spectrogram(
-                samples, filters, n_mels=dims.n_mels, compute_dtype=torch.float32
-            )
-            enc_out = encode(
-                params, mel.to(self._compute_dtype), dims, tp=None if draft else self.mesh
-            )
+        enc_out = encode_samples(params, samples, filters, dims, self._compute_dtype,
+                                 tp=None if draft else self.mesh)
         if audio_ctx is not None and audio_ctx < enc_out.shape[1]:
             enc_out = enc_out[:, :audio_ctx]
         return enc_out
@@ -604,10 +623,7 @@ class Engine:
             # the device. Exact for int16-sourced audio (wav.py reads
             # i/32768); float input quantizes to the nearest int16 step.
             batch = np.zeros((padded_b, N_SAMPLES), dtype=np.int16)
-            x = np.multiply(samples[:, :n], 32768.0, dtype=np.float32)
-            np.rint(x, out=x)
-            np.clip(x, -32768, 32767, out=x)
-            batch[:b, :n] = x.astype(np.int16)
+            batch[:b, :n] = to_int16(samples[:, :n])
         else:
             batch = np.zeros((padded_b, N_SAMPLES), dtype=np.float32)
             batch[:b, :n] = samples[:, :n]  # resize-to-480000 (whisper.cpp:687,698)
@@ -1441,11 +1457,20 @@ def create_engine(
     shard: Optional[Tuple[int, int]] = None,
 ) -> Engine:
     """Factory (reference create_engine, whisper.cpp:778-790). ``params``
-    None → random weights from ``seed``. ``draft_params``: weights for
+    None → random weights from ``seed``. A model of ``AUDIO_LM_DIMS`` gets
+    an ``engine.audio_lm.AudioLM`` (MONOLITH only). ``draft_params``: weights for
     ``config.draft_model`` (None: a random draft; the output is the
     target's greedy decode all the same, see ``decode/speculative.py``).
     ``shard``: ``params`` is a tensor-parallel rank's slice (see
     :meth:`Engine.from_assets`)."""
+    if config.model in AUDIO_LM_DIMS:
+        from whisper_tpu_torch.engine.audio_lm import AudioLM
+
+        if EngineType(engine_type) != EngineType.MONOLITH:
+            raise ValueError(f"{config.model}: an audio language model runs as MONOLITH only")
+        if params is None:
+            return AudioLM.from_random(config, seed=seed, device=device)
+        return AudioLM(params, config, device=device)
     cls = Monolith if EngineType(engine_type) == EngineType.MONOLITH else EncDec
     if params is None:
         return cls.from_random(config, seed=seed, device=device, draft_params=draft_params)
