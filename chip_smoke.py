@@ -134,13 +134,18 @@ Phases, in order; any failure exits non-zero before the last line:
    ms to enqueue beside its window on the encode stream.
 4g. K6's path at full width: ``utils/probe_cross.run`` at JAX's defaults
    (large-v3, batch 16, beam 5, Tk 1500, fp8 K/V, 1 + 16 iterations) in
-   its five modes, each with its launch counts set to 0 just before and
+   its six modes, each with its launch counts set to 0 just before and
    read just after: K6 exactly 2 × 32 × 17 under "dmastage" and never
-   otherwise, K1–K5 never; the final q of "prod", "stage" and "dmastage"
-   bitwise equal, "chunk" within 4 bf16 ulps of "prod" at max|q|, every q
-   finite. Prints each mode's ms per 32-layer iteration, the rate over
-   its window read, the bytes its ops move, the fp8 window's bound and its
-   device launches per iteration.
+   otherwise, the cross-attention kernel exactly 32 × 17 under "kernel"
+   and never otherwise, K1–K5 never; the final q of "prod", "stage" and
+   "dmastage" bitwise equal, "chunk" and "kernel" within 4 bf16 ulps of
+   "prod" at max|q|, every q finite. Then turbo's shape (beam 1, a bf16
+   store) in "bf16" and "kernel" (kernel 32 × 17, within 4 bf16 ulps of
+   "bf16"). Prints each mode's ms per 32-layer iteration (CUDA events,
+   the host's enqueue included: the kernel mode's 32 launches an
+   iteration are paced by the host) and the device ms of one iteration's
+   kernels (profiler), the rate over its window read, the bytes its ops
+   move, the fp8 window's bound and its device launches per iteration.
 5. Kernel path against the CPU path end to end: ``tiny`` dims in float32,
    TF32 off for matmuls and cuDNN, the same weights on the card and on the
    CPU must give equal tokens for a batch of 2: greedy; beam 3 with the
@@ -296,14 +301,53 @@ Phases, in order; any failure exits non-zero before the last line:
 
     python3 chip_smoke.py --moe [--sweep]   # phases 1, 2 (its kernels) and 12 alone
 
-Then, each on a line of its own: the kernels' JSON record, the card's name
-and power limit, and the result line ``{"ok": true, "device": {...}}``.
+13. The cross-attention kernel (``ops/cross_attend``,
+   ``csrc/cross_attend.cu``):
+13a. Against its plain version on the same card tensors, within 2 bf16
+   ulps of the output's largest magnitude, one launch a call, at the
+   flagship's step [16 rows, 5 queries, 20 heads, 64, Tk 1500] e4m3,
+   turbo's [16, 1, 20, 64, 1500] bf16, the flagship's prefill (20
+   queries), a tensor-parallel rank's 10 heads and a crop of 512 in e5m2;
+   the kernel's, the plain version's and the bound's ms a layer (bytes:
+   K and V stored, q and the output once), on a bf16 store the library's
+   one call for the same function (``F.scaled_dot_product_attention`` on
+   the stored layout's transposes, and on K and V copied to [B, H, Tk, 64]
+   first), and the host's ms to enqueue a call of each.
+13b. The flagship's decode at large-v3 width (random int8 weights, an fp8
+   cache, beam 5, "hybrid", 16 rows, 32 tokens), replayed from captured
+   graphs, twice: ``launches`` exactly 32 for the prefill and for every
+   step, replays included; the second run under the profiler, whose
+   ``cross_attend*`` kernels equal that count.
+   (The probe's 32-layer pass with the kernel runs in phase 4g; the
+   kernel's launches on every path are counted in the phases of each.)
+
+    python3 chip_smoke.py --cross   # phases 1, 2 (its kernel) and 13 alone
+
+The cross-attention kernel's launches (``ops/cross_attend``) are counted
+in every phase that runs a Whisper decoder in this process (4, 4b, 4f, 6a,
+6b, 7, 8, 9's processes, 11, 13b) beside a witness, :class:`CrossWitness`:
+the bf16 decoder forwards on the card, each worth its layers, a captured
+step counted at each replay and not at its capture. The launches must
+equal the witness's layers (32 per large-v3 forward), above 0 on a bf16
+path and 0 on an f32 one; 11c's cross row adds its own 32 a iteration;
+4d's and 4e's ranks report 32 per decoder forward (the detection, the
+prefill and each step). Phases 4 and 4b then run ``transcribe_batch``
+on their weights at a 16-token budget under the profiler (after one run
+that captures its steps): its ``cross_attend*`` kernels equal that run's
+launches and its witness (a trace short of them, as one that dropped
+records is, taken again up to 3 times; one that holds more fails).
+
+Then, each on a line of its own: the kernels' JSON record (the
+cross-attention kernel's last: its times at phase 13a's shapes and its
+launches on each path), the card's name and power limit, and the result
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -1591,44 +1635,261 @@ def phase_fp8_upcast(torch, fp8_upcast) -> dict:
 
 def phase_probe_cross(torch, kernels, probe_cross) -> dict:
     """K6's path at full width (docstring, phase 4g): ``probe_cross.run`` at
-    JAX's defaults in each mode, launches counted per mode. Returns K6's
-    launches under "dmastage" and each mode's record."""
+    JAX's defaults in each mode, launches counted per mode; then at turbo's
+    shape (beam 1, a bf16 store) in "bf16" and "kernel". Returns K6's
+    launches under "dmastage", each mode's record and the turbo leg's."""
+    from whisper_tpu_torch.ops import cross_attend
+
     attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     torch.backends.cuda.matmul.allow_tf32 = False  # the probe's f32 products in f32, torch's default
-    args = dict(model="large-v3", batch=16, beam=5, tk=1500, kv=FP8, iters=PROBE_CROSS_ITERS, warmup=1)
-    qs, records = {}, {}
-    for mode in probe_cross.MODES:
+    args = dict(model="large-v3", batch=16, tk=1500, iters=PROBE_CROSS_ITERS, warmup=1)
+    out = {}
+    for leg, beam, kv, modes, plain in (("flagship", 5, FP8, probe_cross.MODES, "prod"),
+                                        ("turbo", 1, "bfloat16", ("bf16", "kernel"), "bf16")):
+        qs, records = {}, {}
+        for mode in modes:
+            torch.cuda.synchronize()
+            reset_counts(*kernels, cross_attend)  # counts start here: this mode's run
+            res = probe_cross.run(**args, beam=beam, kv=kv, mode=mode)
+            torch.cuda.synchronize()
+            n = {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
+                 "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
+                 "K6": fp8_upcast.launches, "cross": cross_attend.launches}  # counts end here
+            rec = dict(probe_cross.record(mode, res), launches=n)
+            log(f"  {leg} {mode}: {rec['ms_per_iter']:.4f} ms per {res['layers']}-layer iteration "
+                f"(events; {rec['device_ms_per_iter']:.4f} device ms of its kernels), "
+                f"{rec['gb_per_s']:.0f} GB/s of its {rec['gb']:.3f} GB window read; moves "
+                f"{rec['moved_gb']:.3f} GB by its ops ({rec['moved_gb'] / rec['ms_per_iter'] * 1e3:.0f} GB/s); "
+                f"fp8 window bound {rec['bound_ms']:.4f} ms ({rec['bound_ms'] / rec['ms_per_iter']:.3f} of "
+                f"the time); {rec['launches_per_iter']} device launches per iteration; launches {n}")
+            for name, k in (rec["top_kernels"] or {}).items():
+                log(f"    {k['ms']:8.3f} device ms in {k['count']:4d} launches of {name[:240]}")
+            want = {"K6": 2 * LARGE_V3_DEC_LAYERS * res["steps"]} if mode == "dmastage" else (
+                {"cross": LARGE_V3_DEC_LAYERS * res["steps"]} if mode == "kernel" else {})
+            if n != dict.fromkeys(n, 0) | want or res["layers"] != LARGE_V3_DEC_LAYERS:
+                fail(f"4g {leg} {mode}: launches {n}, expected {want} and nothing else")
+            if not bool(torch.isfinite(res["q"].float()).all()):
+                fail(f"4g {leg} {mode}: q not finite")
+            qs[mode], records[mode] = res["q"], rec
+        for mode in ("stage", "dmastage"):
+            if mode in qs and not torch.equal(qs[mode], qs[plain]):
+                fail(f"4g {leg}: {mode}'s q is not bitwise equal to {plain}'s")
+        tol = bf16_tolerance(qs[plain].float().abs().max().item())
+        for mode in ("chunk", "kernel"):
+            if mode not in qs:
+                continue
+            err = (qs[mode].float() - qs[plain].float()).abs().max().item()
+            log(f"  {leg}: {mode} against {plain}: max_abs_err {err:.3g} (tol {tol:.3g}: 4 bf16 ulps at "
+                f"max|q|, each rounds its softmax weights at another place)")
+            if err > tol:
+                fail(f"4g {leg}: {mode}'s q is {err:.3g} from {plain}'s, tol {tol:.3g}")
+        out[leg] = records
+    log("  flagship: q of prod, stage and dmastage bitwise equal")
+    return {"k6_launches": out["flagship"]["dmastage"]["launches"]["K6"], "records": out["flagship"],
+            "turbo": out["turbo"]}
+
+
+CROSS_CASES = (  # phase 13a: (label, rows, queries a row, heads, Tk, store)
+    ("flagship step", 16, 5, 20, 1500, "float8_e4m3fn"),
+    ("turbo step", 16, 1, 20, 1500, "bfloat16"),
+    ("flagship prefill, beam x a 4-token prompt", 16, 20, 20, 1500, "float8_e4m3fn"),
+    ("tensor-parallel rank's step", 16, 5, 10, 1500, "float8_e4m3fn"),
+    ("crop 512, e5m2", 16, 5, 20, 512, "float8_e5m2"),
+)
+CROSS_BEAM_BUDGET = 32  # phase 13b: new tokens a row of the replayed flagship decode
+
+
+def cross_bound_ms(b: int, tq: int, h: int, tk: int, itemsize: int) -> float:
+    """Bytes of one layer's cross read over the card's rate: K and V in
+    their stored type, q and the output in bf16, each once."""
+    return (2 * b * h * 64 * tk * itemsize + 2 * b * tq * h * 64 * 2) / PEAK_BYTES * 1e3
+
+
+def phase_cross_attend(torch, cross_attend) -> dict:
+    """Phase 13a: the cross-attention kernel against its plain version on the
+    same card tensors at the cells' shapes (:data:`CROSS_CASES`), within 2
+    bf16 ulps of the output's largest magnitude, one launch a call; the
+    kernel's, the plain version's and the bound's ms (a layer)."""
+    out = {}
+    for label, b, tq, h, tk, store in CROSS_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(tq * tk + h)
+        dt = getattr(torch, store)
+        q = torch.randn((b, tq, h, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        kT, vT = ((2.0 * torch.randn((b, h, 64, tk), generator=gen, device="cuda")).to(dt) for _ in range(2))
+        before = cross_attend.launches
+        got = cross_attend.cross_attend(q, kT, vT)
         torch.cuda.synchronize()
-        reset_counts(*kernels)  # counts start here: this mode's run
-        res = probe_cross.run(**args, mode=mode)
+        if cross_attend.launches != before + 1:
+            fail(f"13a {label}: {cross_attend.launches - before} launches for one call")
+        want = cross_attend.cross_attend_reference(q, kT, vT)
+        ref_max = want.float().abs().max().item()
+        tol = bf16_tolerance(ref_max) / 2  # 2 bf16 ulps
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tol:
+            fail(f"13a {label}: max_abs_err {err:.3g} against the plain version, tol {tol:.3g}")
+        plan = cross_attend.plan(tq, tk, dt.itemsize, kT.data_ptr(), vT.data_ptr())
+        kernel_ms = time_ms(lambda: cross_attend.cross_attend(q, kT, vT))
+        plain_ms = time_ms(lambda: cross_attend.cross_attend_reference(q, kT, vT), inner=5)
+        host_ms = host_ms_per_call(lambda: cross_attend.cross_attend(q, kT, vT))
+        plain_host_ms = host_ms_per_call(lambda: cross_attend.cross_attend_reference(q, kT, vT), calls=20)
+        bound = cross_bound_ms(b, tq, h, tk, dt.itemsize)
+        rec = {"shape": [b, tq, h, 64, tk], "store": store, "plan": plan._asdict(), "max_abs_err": err,
+               "tol": tol, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "roofline": bound / kernel_ms, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+               **cross_library(torch, q, kT, vT, want)}
+        out[label] = rec
+        lib = ("no library call reads an fp8 store" if rec["library_ms"] is None else
+               f"SDPA {rec['library_ms']:.4f} ms on the stored layout, {rec['library_copied_ms']:.4f} ms with "
+               f"K and V copied to [B, H, Tk, 64] first (max_abs_err {rec['library_err']:.3g})")
+        log(f"  {label} [{b},{tq},{h},64,{tk}] {store}: kernel {kernel_ms:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes; {100 * bound / kernel_ms:.1f}%), plain {plain_ms:.4f} ms, {lib}; host {host_ms:.4f} ms "
+            f"a call (plain {plain_host_ms:.4f}); max_abs_err {err:.3g} (tol {tol:.3g}); plan {tuple(plan)}")
+    return out
+
+
+def cross_library(torch, q, kT, vT, want) -> dict:
+    """The library's one call for the same function where there is one: on
+    a bf16 store, ``F.scaled_dot_product_attention`` on the stored layout's
+    transposes (whichever backend torch picks for K and V whose last axis
+    is not contiguous), and on K and V copied to [B, H, Tk, 64] first (the
+    copy timed in); the port never calls it. Its distance from the plain
+    version is printed, not held to a tolerance (it rounds the scores to
+    bf16). Nothing on an fp8 store: no one call reads it."""
+    import torch.nn.functional as F
+
+    if kT.dtype != torch.bfloat16:
+        return {"library_ms": None, "library_copied_ms": None, "library_err": None}
+    qt = q.transpose(1, 2)
+
+    def stored():
+        return F.scaled_dot_product_attention(qt, kT.transpose(-1, -2), vT.transpose(-1, -2))
+
+    def copied():
+        return F.scaled_dot_product_attention(qt, kT.transpose(-1, -2).contiguous(),
+                                              vT.transpose(-1, -2).contiguous())
+
+    err = (stored().transpose(1, 2).float() - want.float()).abs().max().item()
+    return {"library_ms": time_ms(stored, inner=5), "library_copied_ms": time_ms(copied, inner=5),
+            "library_err": err}
+
+
+def phase_cross_replayed(torch, cross_attend) -> dict:
+    """Phase 13b: the flagship's decode at large-v3 width (random weights,
+    int8, an fp8 cache, beam 5, "hybrid", 16 rows of 1500 encoder positions,
+    a 4-token prompt) with its steps replayed from captured graphs, twice on
+    one ``StepGraphs``: ``launches`` must rise by 32 for the prefill and for
+    every step, replays included; the second run, every step of it
+    replayed, under the profiler, whose ``cross_attend`` kernels must equal
+    that run's count. Each run's launches equal its witnessed layers
+    (:data:`CROSS`)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.config import MODEL_DIMS
+    from whisper_tpu_torch.decode import beam, graph
+    from whisper_tpu_torch.models.params import init_params
+    from whisper_tpu_torch.models.quantize import quantize_params
+
+    dims = dataclasses.replace(MODEL_DIMS["large-v3"])
+    params = quantize_params(init_params(dims, torch.Generator("cuda").manual_seed(13),
+                                         dtype=torch.bfloat16, device="cuda"))
+    gen = torch.Generator("cuda").manual_seed(14)
+    enc = torch.randn((16, dims.n_audio_ctx, dims.n_audio_state), generator=gen, device="cuda")
+    enc = enc.to(torch.bfloat16)
+    prompt = torch.tensor([[50258, 50259, 50360, 50364]] * 16, device="cuda")
+    kw = dict(dims=dims, eot=50257, max_new_tokens=CROSS_BEAM_BUDGET, beam_size=5,
+              compute_dtype=torch.bfloat16, kv_cache_dtype=torch.float8_e4m3fn, fused="hybrid",
+              graphs=graph.StepGraphs())
+    out = {}
+    for traced in (False, True):
         torch.cuda.synchronize()
-        n = {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
-             "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
-             "K6": fp8_upcast.launches}  # counts end here
-        rec = dict(probe_cross.record(mode, res), launches=n)
-        log(f"  {mode}: {rec['ms_per_iter']:.4f} ms per {res['layers']}-layer iteration "
-            f"({rec['gb_per_s']:.0f} GB/s of its {rec['gb']:.3f} GB window read); moves "
-            f"{rec['moved_gb']:.3f} GB by its ops ({rec['moved_gb'] / rec['ms_per_iter'] * 1e3:.0f} GB/s); "
-            f"fp8 window bound {rec['bound_ms']:.4f} ms ({rec['bound_ms'] / rec['ms_per_iter']:.3f} of "
-            f"the time); {rec['launches_per_iter']} device launches per iteration; launches {n}")
-        for name, k in (rec["top_kernels"] or {}).items():
-            log(f"    {k['ms']:8.3f} device ms in {k['count']:4d} launches of {name[:240]}")
-        want = 2 * LARGE_V3_DEC_LAYERS * res["steps"] if mode == "dmastage" else 0
-        if n != dict.fromkeys(n, 0) | {"K6": want} or res["layers"] != LARGE_V3_DEC_LAYERS:
-            fail(f"4g {mode}: launches {n}, expected K6 {want} and nothing else")
-        if not bool(torch.isfinite(res["q"].float()).all()):
-            fail(f"4g {mode}: q not finite")
-        qs[mode], records[mode] = res["q"], rec
-    for mode in ("stage", "dmastage"):
-        if not torch.equal(qs[mode], qs["prod"]):
-            fail(f"4g: {mode}'s q is not bitwise equal to prod's")
-    tol = bf16_tolerance(qs["prod"].float().abs().max().item())
-    err = (qs["chunk"].float() - qs["prod"].float()).abs().max().item()
-    log(f"  q of prod, stage and dmastage bitwise equal; chunk against prod: max_abs_err {err:.3g} "
-        f"(tol {tol:.3g}: 4 bf16 ulps at max|q|, each rounds its softmax weights at another place)")
-    if err > tol:
-        fail(f"4g: chunk's q is {err:.3g} from prod's, tol {tol:.3g}")
-    return {"k6_launches": records["dmastage"]["launches"]["K6"], "records": records}
+        n0, s0, r0, w0 = cross_attend.launches, beam.steps, graph.replays, CROSS.layers
+        t0 = time.perf_counter()
+        if traced:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                beam.beam_decode(params, enc, prompt, **kw)
+                torch.cuda.synchronize()
+        else:
+            beam.beam_decode(params, enc, prompt, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, steps, replays = cross_attend.launches - n0, beam.steps - s0, graph.replays - r0
+        if n != LARGE_V3_DEC_LAYERS * (1 + steps) or CROSS.layers - w0 != n:
+            fail(f"13b: {n} cross_attend launches for a prefill and {steps} steps, "
+                 f"{CROSS.layers - w0} decoder layers witnessed")
+        rec = {"launches": n, "steps": steps, "replays": replays, "wall_s": wall}
+        if traced:
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.name.startswith(cross_attend.KERNEL_SYMBOL)]
+            if len(kernels) != n:
+                fail(f"13b: {len(kernels)} cross_attend kernels in the trace, {n} counted")
+            rec["traced_kernels"] = len(kernels)
+            rec["traced_kernel_ms"] = sum(e.device_time_total for e in kernels) / 1e3
+            if replays != steps:
+                fail(f"13b: {replays} of {steps} steps of the second decode replayed")
+        out["traced" if traced else "untraced"] = rec
+        log(f"  flagship decode {'traced' if traced else 'untraced'}: {wall:.2f} s, {steps} steps "
+            f"({replays} replayed), cross_attend launches {n}"
+            + (f" = {rec['traced_kernels']} kernels in the trace, {rec['traced_kernel_ms']:.2f} device ms"
+               if traced else ""))
+    del params
+    return out
+
+
+def phase_cross(torch, cross_attend) -> dict:
+    log("[13a] the cross-attention kernel against its plain version, timed beside its bound")
+    rec = {"cases": phase_cross_attend(torch, cross_attend)}
+    log("[13b] the flagship's decode at large-v3 width, its steps replayed: launches against a trace")
+    rec["replayed"] = phase_cross_replayed(torch, cross_attend)
+    return rec
+
+
+def cross_kernel_record(cross_rec, greedy, flagship, dp, tp, stream, serving, probe) -> dict:
+    """The cross-attention kernel's entry of the ``kernels`` line: phase
+    13a's times at the flagship's step (and every case's), and its launches
+    on each path that ran it, beside their witnesses."""
+    step = cross_rec["cases"]["flagship step"]
+    keys = ("shape", "store", "kernel_ms", "bound_ms", "plain_ms", "library_ms", "library_copied_ms", "roofline")
+    return {
+        "name": "cross_attend", "route": "cuda", "source": "whisper_tpu_torch/csrc/cross_attend.cu",
+        "replaces": "whisper_tpu/models/layers.py:cross_attention_T (two einsums XLA fuses)",
+        "launches": flagship["run"]["cross"], "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": "bytes", "library_ms": step["library_ms"],
+        "shape": step["shape"], "dtype": step["store"],
+        "cases": {label: {k: c[k] for k in keys} for label, c in cross_rec["cases"].items()},
+        "engine_launches": {"greedy": greedy["run"], "beam": flagship["run"], "beam_off": flagship["off"]},
+        "engine_traced": {"greedy": greedy["traced"], "beam": flagship["traced"]},
+        "replayed_decode": cross_rec["replayed"],
+        "dp_launches_per_rank": dp,
+        "tp_launches_per_rank": {label: rec["cross_per_rank"] for label, rec in tp.items()},
+        "stream_launches": {label: r["launches"]["cross"] for label, r in stream.items()},
+        "serving_launches": {name: rec["cross"] for name, rec in serving.items()},
+        "probe": {leg: {mode: {k: r[k] for k in ("ms_per_iter", "device_ms_per_iter", "launches_per_iter")}
+                        | {"launches": r["launches"]["cross"]} for mode, r in recs.items()}
+                  for leg, recs in (("flagship", probe["records"]), ("turbo", probe["turbo"]))},
+    }
+
+
+def cross_only() -> None:
+    """``--cross``: phases 1, 2 (the cross-attention kernel only) and 13; the
+    last line is phase 13's JSON record."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    from whisper_tpu_torch.ops import build, cross_attend
+
+    CROSS.install()
+    log(f"[1] card: {card_line()}")
+    t0 = time.perf_counter()
+    for name, (secs, ptxas) in build.build([cross_attend.KERNEL]).items():
+        usage = [ln.strip() for ln in ptxas.splitlines()
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
+        log(f"[2] {name}.cu: nvcc {secs:.2f} s; " + " | ".join(usage))
+    log(f"  built in {time.perf_counter() - t0:.2f} s")
+    print(json.dumps(phase_cross(torch, cross_attend)))
 
 
 def synthetic_utterance(seconds: float, seed: int) -> np.ndarray:
@@ -1686,16 +1947,154 @@ def roofline_line(torch, engine, results, wall: float, host: np.ndarray) -> dict
     return u
 
 
+class CrossWitness:
+    """The decoder forwards that run on the card in bf16, and their layers,
+    counted apart from the cross-attention kernel: a spy on
+    ``models/decoder._layers`` (every decoder forward of every step mode
+    goes through it) counts each call whose input is a bf16 card tensor,
+    worth its layers; a captured step counts nothing at its capture and
+    what its capture saw at each replay (spies on ``decode/graph.Entry``).
+    Every such layer must be one launch of the kernel: ``launches`` of
+    ``ops/cross_attend`` equals :attr:`layers` (32 × :attr:`forwards` on
+    large-v3), and f32 forwards count and launch nothing."""
+
+    def __init__(self):
+        self.forwards = self.layers = 0
+        self.module = None  # ops/cross_attend, once installed
+
+    def install(self) -> "CrossWitness":
+        import torch
+
+        from whisper_tpu_torch.decode import graph
+        from whisper_tpu_torch.models import decoder
+        from whisper_tpu_torch.ops import cross_attend
+
+        if self.module is not None:
+            return self
+        self.module = cross_attend
+        forward, capture, step = decoder._layers, graph.Entry._capture, graph.Entry.step
+
+        def layers_spy(dec, x, *args, **kw):
+            if x.is_cuda and x.dtype == torch.bfloat16:
+                self.forwards += 1
+                self.layers += len(dec["blocks"])
+            return forward(dec, x, *args, **kw)
+
+        def capture_spy(entry, run, variant):
+            before = self.forwards, self.layers
+            capture(entry, run, variant)
+            seen = (self.forwards - before[0], self.layers - before[1])
+            entry.__dict__.setdefault("witnessed", {})[variant] = seen
+            self.forwards, self.layers = before  # a capture runs nothing on the card
+
+        def step_spy(entry, run, variant):
+            replayed = step(entry, run, variant)
+            if replayed:
+                f, n = entry.witnessed[variant]
+                self.forwards += f
+                self.layers += n
+            return replayed
+
+        decoder._layers, graph.Entry._capture, graph.Entry.step = layers_spy, capture_spy, step_spy
+        return self
+
+    def reset(self) -> None:
+        self.forwards = self.layers = 0
+        if self.module is not None:
+            self.module.launches = 0
+
+    def counts(self) -> dict:
+        """The kernel's launches, the bf16 decoder forwards and their layers."""
+        return {"cross": self.module.launches, "decoder_forwards": self.forwards, "cross_reads": self.layers}
+
+
+CROSS = CrossWitness()  # installed by main() and cross_only(), and in the CLI's processes
+
+
 def reset_counts(*modules) -> None:
+    """Every launch count of ``modules``, and the cross-attention kernel's
+    with its witness (:data:`CROSS`), set to 0."""
     for m in modules:
         m.launches = 0
         if hasattr(m, "sharded_launches"):  # K2′ counts beside K2 in ops/fused_step.py
             m.sharded_launches = 0
+    CROSS.reset()
+
+
+def check_cross(label: str, n: dict, bf16: bool = True, want: int = None) -> None:
+    """The cross-attention kernel's launches ``n["cross"]`` against its
+    witness's layers (``want`` where the phase also reads the cross
+    attention outside a decoder forward): equal, and above 0 on a bf16
+    path."""
+    want = n["cross_reads"] if want is None else want
+    if n["cross"] != want or (bf16 and want == 0):
+        fail(f"{label}: the cross-attention kernel launched {n['cross']} times, expected {want} "
+             f"(bf16 decoder forwards {n['decoder_forwards']}, their layers {n['cross_reads']})")
+
+
+CROSS_TRACED_BUDGET = 16  # tokens a row of phases 4's and 4b's traced transcribe_batch
+CROSS_TRACES = 3  # traced runs at most, until one holds every counted kernel
+
+
+def cross_traced(torch, label: str, engine, batch) -> dict:
+    """``transcribe_batch`` of ``batch`` on ``engine``'s weights at a budget
+    of :data:`CROSS_TRACED_BUDGET` tokens, once to capture its steps and
+    then under the profiler, its counts set to 0 just before each: the
+    kernel's launches and its witness's layers must be equal and above 0,
+    and the ``cross_attend*`` kernels of the trace equal to them. A trace
+    can lose kernels, never gain them: the profiler drops buffers of
+    records under the replayed steps' pace (in a full smoke one trace of a
+    64-token greedy batch lost 28 of 2,080 ``cross_attend`` kernels, one
+    of a 16-token flagship batch 7 of 544, while a run alone kept all), so
+    a trace short of the count is taken again, up to :data:`CROSS_TRACES`
+    times, and one that holds more fails at once. The run starts
+    ``TRACE_PAD_S`` after the profiler and ends as long before it stops
+    (``utils/probe_cross.traced_step``: kernels near a trace's edges can
+    fall outside its window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.utils.probe_cross import TRACE_PAD_S
+
+    short = _engine_with(engine, max_new_tokens=CROSS_TRACED_BUDGET)
+    short.transcribe_batch(batch)  # its steps captured
+    short_of = []
+    for _ in range(CROSS_TRACES):
+        torch.cuda.synchronize()
+        CROSS.reset()  # counts start here
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            short.transcribe_batch(batch)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        n = CROSS.counts()  # counts end here
+        check_cross(f"{label} traced", n)
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if e.name.startswith(CROSS.module.KERNEL_SYMBOL)]
+        if len(kernels) > n["cross"]:
+            fail(f"{label} traced: {len(kernels)} cross_attend kernels in the trace, {n['cross']} counted")
+        if len(kernels) == n["cross"]:
+            break
+        short_of.append(n["cross"] - len(kernels))
+        log(f"  {label} traced: {len(kernels)} cross_attend kernels in a trace of {len(device)}, "
+            f"{n['cross']} counted: records dropped, traced again")
+    else:
+        fail(f"{label} traced: every trace short of the {n['cross']} counted cross_attend kernels by {short_of}")
+    rec = dict(n, traced_kernels=len(kernels), trace_kernels=len(device), traces_short_by=short_of,
+               traced_kernel_ms=sum(e.device_time_total for e in kernels) / 1e3)
+    log(f"  {label} traced ({CROSS_TRACED_BUDGET} tokens a row): cross_attend launches {n['cross']} = "
+        f"{len(kernels)} kernels in the trace of {len(device)} ({rec['traced_kernel_ms']:.2f} device ms) = "
+        f"{n['cross_reads'] // max(n['decoder_forwards'], 1)} × {n['decoder_forwards']} bf16 decoder forwards")
+    # The short engine's graphs are freed here: left to the collector, one was reset during a later
+    # engine's capture, which that invalidates.
+    del short, prof
+    gc.collect()
+    torch.cuda.synchronize()
+    return rec
 
 
 def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> tuple:
     """Greedy main path (docstring, phase 4). Returns K1's launches, the
-    engine and its batch's results."""
+    engine, its batch's results and the cross-attention kernel's counts."""
     from whisper_tpu_torch.audio.wav import write_wav
 
     attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
@@ -1736,11 +2135,12 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
         single = engine.transcribe(path)
     encodes += 1
     check_results([single], engine, dims.n_vocab)
-    launches = attention.launches  # counts end here
+    launches, cross = attention.launches, CROSS.counts()  # counts end here
     others = (fused_step.launches, gather.launches, gather_attend.launches, mel_fused.launches,
               fused_step.sharded_launches, fp8_upcast.launches)
     if any(others):
         fail(f"greedy launched K2, K4, K3, K5, K2′, K6 {others} times, expected none")
+    check_cross("4 greedy", cross)
 
     log(
         f"  large-v3 bf16, batch 4 ({audio_s:.1f} s of audio): {wall * 1e3:.1f} ms "
@@ -1753,15 +2153,19 @@ def phase_main_path(torch, kernels, EngineConfig, EngineType, create_engine) -> 
         log(f"    lang {r.language} length {r.length} tokens {r.tokens[:8].tolist()}...")
     log(f"    file: lang {single.language} length {single.length}")
     expected = LARGE_V3_ENC_LAYERS * encodes
-    log(f"  K1 launches on the main path: {launches} ({encodes} encodes × {dims.n_audio_layer} layers)")
+    log(f"  K1 launches on the main path: {launches} ({encodes} encodes × {dims.n_audio_layer} layers); "
+        f"cross_attend {cross['cross']} ({cross['decoder_forwards']} bf16 decoder forwards × "
+        f"{dims.n_text_layer} layers)")
     if dims.n_audio_layer != LARGE_V3_ENC_LAYERS or launches != expected:
         fail(f"K1 launched {launches} times, expected {expected}")
-    return launches, engine, results
+    cross = {"run": cross, "traced": cross_traced(torch, "4 greedy transcribe_batch", engine, batch)}
+    return launches, engine, results, cross
 
 
 def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engine) -> tuple:
     """Beam main path (docstring, phase 4b). Returns the K2 and K4 launch
-    counts of their runs, the hybrid engine and its batch's results."""
+    counts of their runs, the hybrid engine, its batch's results and the
+    cross-attention kernel's counts."""
     from whisper_tpu_torch.audio.wav import write_wav
 
     attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
@@ -1806,7 +2210,7 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     check_results([single], engine, dims.n_vocab)
     k1, k2, k4, steps = attention.launches, fused_step.launches, gather.launches, beam.steps
     k3, k5, k2s = gather_attend.launches, mel_fused.launches, fused_step.sharded_launches
-    k6 = fp8_upcast.launches  # counts end here
+    k6, cross = fp8_upcast.launches, CROSS.counts()  # counts end here
 
     log(
         f"  large-v3 beam 5 int8 + fp8 KV, batch 4 ({audio_s:.1f} s of audio): "
@@ -1830,7 +2234,11 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
         fail(f"hybrid: K3 launched {k3} times, K5 {k5}, K2′ {k2s}, K6 {k6}, expected none")
     if k2 != LARGE_V3_DEC_LAYERS * steps or k4 != 0:
         fail(f"hybrid: K2 launched {k2} times (expected {LARGE_V3_DEC_LAYERS * steps}), K4 {k4} (expected 0)")
+    check_cross("4b hybrid", cross)
+    log(f"  cross_attend {cross['cross']} ({cross['decoder_forwards']} bf16 decoder forwards × "
+        f"{dims.n_text_layer} layers: detection, prefill and {steps} beam steps over {encodes} decodes)")
     k2_on_card(torch, fused_step, beam, engine, enc_out)
+    cross = {"run": cross, "traced": cross_traced(torch, "4b flagship transcribe_batch", engine, batch)}
 
     # The same weights with the eager step and the K4 reorder.
     off = type(engine)(engine.assets, dataclasses.replace(cfg, fused_step="off"), device="cuda")
@@ -1842,18 +2250,19 @@ def phase_beam_path(torch, kernels, beam, EngineConfig, EngineType, create_engin
     wall_off = time.perf_counter() - t0
     k2_off, k4_off, steps_off = fused_step.launches, gather.launches, beam.steps
     k35_off = gather_attend.launches + mel_fused.launches + fp8_upcast.launches
-    # counts end here
+    cross["off"] = CROSS.counts()  # counts end here
     log(
         f"  fused_step='off': {wall_off * 1e3:.1f} ms → {audio_s / wall_off:.2f} audio-s/s; "
         f"K2 {k2_off}, K4 {k4_off} ({steps_off} steps × 2)"
     )
     if k2_off != 0 or k35_off != 0 or k4_off != 2 * steps_off or steps_off == 0:
         fail(f"off: K2 launched {k2_off} times (expected 0), K4 {k4_off} (expected {2 * steps_off})")
+    check_cross("4b off", cross["off"])
     for a, b in zip(results, results_off):
         if not np.array_equal(a.tokens, b.tokens) or a.length != b.length:
             fail(f"hybrid and off tokens differ: {a.tokens[:a.length].tolist()} vs {b.tokens[:b.length].tolist()}")
     log("  hybrid and off tokens equal")
-    return k2, k4_off, engine, results
+    return k2, k4_off, engine, results, cross
 
 
 def k2_on_card(torch, fused_step, beam, engine, enc_out) -> None:
@@ -1908,7 +2317,7 @@ def phase_quantize_witness(torch, main_engine, beam_engine) -> None:
 
 def phase_data_parallel(torch, beam_engine, beam_results) -> list:
     """The flagship data-parallel path (docstring, phase 4d). Returns K2′'s
-    launches on each rank."""
+    and the cross-attention kernel's launches on each rank."""
     from whisper_tpu_torch.parallel._dist_worker import launch, params_checksum
 
     cfg = beam_engine.config
@@ -1922,7 +2331,7 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
             "--fused-step", "auto", "--max-new", str(cfg.max_new_tokens),
         ], tmp, timeout=600)
     checksum = params_checksum(beam_engine.assets.params)
-    k2s = []
+    k2s, cross = [], []
     for rep in reports:
         run = rep["runs"]["auto"]
         n, steps = run["launches"], run["steps"]
@@ -1931,8 +2340,8 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
             f"{run['seconds'] * 1e3:.1f} ms for its 2 rows ({rows_s:.1f} s of audio) → "
             f"{rows_s / run['seconds']:.2f} audio-s/s; launches K1 {n['flash_attn_fwd']}, "
             f"K2 {n['permute_append']}, K2′ {n['permute_append_sharded']} ({steps} steps × "
-            f"{LARGE_V3_DEC_LAYERS} layers), K4 {n['permute_rows']}; weights checksum "
-            f"{rep['params_checksum']}")
+            f"{LARGE_V3_DEC_LAYERS} layers), K4 {n['permute_rows']}, cross_attend {n['cross_attend']}; "
+            f"weights checksum {rep['params_checksum']}")
         if rep["params_checksum"] != checksum:
             fail(f"rank {rep['rank']} holds other weights than phase 4b: {rep['params_checksum']} != {checksum}")
         if steps == 0 or n["permute_append_sharded"] != LARGE_V3_DEC_LAYERS * steps:
@@ -1940,7 +2349,12 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
         if n["permute_append"] or n["permute_rows"] or n["flash_attn_fwd"] != LARGE_V3_ENC_LAYERS * run["encodes"]:
             fail(f"rank {rep['rank']}: K2 {n['permute_append']}, K4 {n['permute_rows']} (expected 0), "
                  f"K1 {n['flash_attn_fwd']} (expected {LARGE_V3_ENC_LAYERS * run['encodes']})")
+        forwards = 2 + steps  # detection, prefill, steps
+        if n["cross_attend"] != LARGE_V3_DEC_LAYERS * forwards:
+            fail(f"rank {rep['rank']}: cross_attend launched {n['cross_attend']} times, expected "
+                 f"{LARGE_V3_DEC_LAYERS} × {forwards} decoder forwards")
         k2s.append(n["permute_append_sharded"])
+        cross.append(n["cross_attend"])
     results = reports[0]["runs"]["auto"]["results"]
     if reports[1]["runs"]["auto"]["results"] != results or len(results) != len(LENGTHS_S):
         fail("the ranks returned different result lists")
@@ -1964,7 +2378,7 @@ def phase_data_parallel(torch, beam_engine, beam_results) -> list:
         f"(audio_ctx {reports[0]['audio_ctx']})")
     agree = sum(g["tokens"] == b.tokens[: b.length].tolist() for g, b in zip(results, beam_results))
     log(f"  information: {agree} of {len(results)} rows equal phase 4b's single-process batch-4 run")
-    return k2s
+    return k2s, cross
 
 
 TP_BUDGET = 32  # phase 4e's tokens per row
@@ -1974,13 +2388,15 @@ TP_PER_ENCODE = 2 * LARGE_V3_ENC_LAYERS  # 64: o and fc2 × 32
 
 def _tp_expect(label: str, rep: dict, rec: dict, beam_run: bool, encodes: int, decodes: int) -> None:
     """Phase 4e's exact counts for one rank's record ``rec`` (a run, or one
-    of its timed stages): K1 32 per encode, K4 2 per beam step, no other
-    kernel; collectives 64 per encode and 98 per decoder forward, by
+    of its timed stages): K1 32 per encode, K4 2 per beam step, the
+    cross-attention kernel 32 per decoder forward (its 10 local heads), no
+    other kernel; collectives 64 per encode and 98 per decoder forward, by
     stage."""
     n, steps, col = rec["launches"], rec["steps"], rec["collectives"]
     want_k = {"flash_attn_fwd": LARGE_V3_ENC_LAYERS * encodes,
               "permute_rows": 2 * steps if beam_run else 0,
-              "permute_append": 0, "permute_append_sharded": 0, "gather_attend": 0, "log_mel_fused": 0}
+              "permute_append": 0, "permute_append_sharded": 0, "gather_attend": 0, "log_mel_fused": 0,
+              "cross_attend": LARGE_V3_DEC_LAYERS * (2 * decodes + steps)}  # detection, prefill, steps
     if n != want_k:
         fail(f"4e {label}, rank {rep['rank']}: launches {n}, expected {want_k}")
     want_c = {}
@@ -2237,6 +2653,7 @@ def _tp_leg(torch, label, engine, main_engine, npz, batch, audio_s) -> dict:
     return {
         "k1_per_rank": [rep["runs"]["auto"]["launches"]["flash_attn_fwd"] for rep in reports],
         "k4_per_rank": [rep["runs"]["auto"]["launches"]["permute_rows"] for rep in reports],
+        "cross_per_rank": [rep["runs"]["auto"]["launches"]["cross_attend"] for rep in reports],
         "steps": reports[0]["runs"]["auto"]["steps"],
         "decode_ms_per_token": reports[0]["runs"]["auto"]["decode"]["ms"]
         / max(reports[0]["runs"]["auto"]["decode"]["steps"], 1),
@@ -2342,7 +2759,8 @@ def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
         for r in runs:
             log(f"  {label} {r['way']}: {r['wall'] * 1e3:.1f} ms → {audio_s / r['wall']:.2f} audio-s/s; decode "
                 f"{r['decode_ms']:.1f} device-clock ms over {r['steps']} steps = {r['decode_ms_per_token']:.2f} "
-                f"ms/token; max_memory_allocated {r['peak'] / 1e9:.3f} GB; launches {r['launches']}")
+                f"ms/token; max_memory_allocated {r['peak'] / 1e9:.3f} GB; launches {r['launches']}; "
+                f"cross_attend {r['cross']['cross']} ({r['cross']['decoder_forwards']} bf16 decoder forwards)")
         first = runs[0]
         want = {"K1": LARGE_V3_ENC_LAYERS * len(batches),
                 "K2": LARGE_V3_DEC_LAYERS * first["beam_steps"] if engine.config.beam_size > 1 else 0,
@@ -2350,6 +2768,7 @@ def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
         for r in runs:
             if r["launches"] != want or (engine.config.beam_size > 1 and r["beam_steps"] == 0):
                 fail(f"4f {label} {r['way']}: launched {r['launches']}, expected {want}")
+            check_cross(f"4f {label} {r['way']}", r["cross"])
             for i, (a_list, b_list) in enumerate(zip(r["results"], first["results"])):
                 if len(a_list) != len(b_list) or len(a_list) != batches[i].shape[0]:
                     fail(f"4f {label} {r['way']}: batch {i} gave {len(a_list)} results, the loop {len(b_list)}")
@@ -2383,7 +2802,7 @@ def phase_batch_stream(torch, kernels, beam, main_engine, beam_engine) -> dict:
             f"audio-s/s (runs in the order {' '.join(STREAM_ORDER)}); no host sync in "
             f"{STREAM_ORDER.count('stream') * len(batches)} encode enqueues")
         out[label] = {
-            "launches": first["launches"],
+            "launches": dict(first["launches"], cross=first["cross"]["cross"]),
             "audio_s_per_s": rate,
             "decode_ms_per_token": {way: [r["decode_ms_per_token"] for r in runs if r["way"] == way]
                                     for way in ("loop", "stream")},
@@ -2417,10 +2836,10 @@ def _stream_run(torch, kernels, beam, engine, batches, way) -> dict:
         launches = {"K1": attention.launches, "K2": fused_step.launches,
                     "K2′": fused_step.sharded_launches, "K3": gather_attend.launches,
                     "K4": gather.launches, "K5": mel_fused.launches, "K6": fp8_upcast.launches}
-        beam_steps = beam.steps  # counts end here
+        beam_steps, cross = beam.steps, CROSS.counts()  # counts end here
     decode_ms = sum(s.elapsed_time(e) for s, e, _ in rec["decode"])
     steps = sum(n for _, _, n in rec["decode"])
-    return dict(way=way, results=results, wall=wall, launches=launches, beam_steps=beam_steps, rec=rec,
+    return dict(way=way, results=results, wall=wall, launches=launches, beam_steps=beam_steps, rec=rec, cross=cross,
                 decode_ms=decode_ms, steps=steps, decode_ms_per_token=decode_ms / max(steps, 1),
                 peak=torch.cuda.max_memory_allocated())
 
@@ -2573,9 +2992,11 @@ def phase_card_vs_cpu(torch, EngineConfig, Monolith) -> None:
                     fail(f"tiny f32 beam 3, DP(2) {mode} on the card, rank {rep['rank']}: tokens "
                          f"{g['tokens']} differ from the CPU's {b.tokens[: b.length].tolist()}")
             want = (layers * steps, 0) if mode == "hybrid" else (0, 2 * steps)
-            if steps == 0 or (n["permute_append_sharded"], n["permute_rows"]) != want or n["permute_append"]:
+            if (steps == 0 or (n["permute_append_sharded"], n["permute_rows"]) != want or n["permute_append"]
+                    or n["cross_attend"]):
                 fail(f"tiny DP(2) {mode}, rank {rep['rank']}: K2′ {n['permute_append_sharded']}, "
-                     f"K4 {n['permute_rows']}, K2 {n['permute_append']} over {steps} steps")
+                     f"K4 {n['permute_rows']}, K2 {n['permute_append']}, cross_attend {n['cross_attend']} "
+                     f"(f32: 0) over {steps} steps")
         log(f"  beam 3, DP(2) on the card, {mode}: both ranks equal to cpu off "
             f"(K2′ {reports[0]['runs'][mode]['launches']['permute_append_sharded']} launches on rank 0)")
     phase_tp_card_vs_cpu(torch, params, cfg, x, {"greedy": cpu, "beam 3 off": runs["cpu off"],
@@ -2633,6 +3054,8 @@ def phase_tp_card_vs_cpu(torch, params, cfg, x, cpu_runs, fp8_rounds) -> None:
                              f"{g['tokens']} differ from the CPU's {b.tokens[: b.length].tolist()}")
                     if run["launches"]["permute_append"] or run["launches"]["permute_append_sharded"]:
                         fail(f"tiny f32 {name}, mesh {mesh}: K2 or K2′ ran on a model axis of 2")
+                    if run["launches"]["cross_attend"]:
+                        fail(f"tiny f32 {name}, mesh {mesh}: the cross-attention kernel ran in f32")
                 run0 = reports[0]["runs"]["auto" if name != "beam 3 off" else "off"]
                 same = "every rank equal to the CPU's single process" + (
                     f" but for near-tie flips under fp8 storage: {sorted(set(flips))}" if flips else "")
@@ -2751,7 +3174,7 @@ def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
     with pool:
         results, lat, wall = _drive(pool, utts, [list(range(i, i + 4)) for i in range(0, len(utts), 4)])
     torch.cuda.synchronize()
-    k1 = attention.launches
+    k1, cross = attention.launches, CROSS.counts()
     others = (fused_step.launches, fused_step.sharded_launches, gather_attend.launches, gather.launches,
               mel_fused.launches, fp8_upcast.launches)  # counts end here
     check_results(results, engine, engine.dims.n_vocab)
@@ -2761,12 +3184,15 @@ def phase_slot_pool(torch, kernels, engine, utts, cls) -> dict:
     log(f"  {cls.__name__}: {len(utts)} utterances ({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; "
         f"occupancy {pool.occupancy:.3f}, dispatch efficiency {pool.dispatch_efficiency:.3f}, "
         f"{steps} macro-steps of {pool.sync_every} steps, {prefills} prefill dispatches")
-    log(f"    launches: K1 {k1} ({prefills} prefills × {LARGE_V3_ENC_LAYERS} layers); K2, K2′, K3, K4, K5, K6 {others}")
+    log(f"    launches: K1 {k1} ({prefills} prefills × {LARGE_V3_ENC_LAYERS} layers); K2, K2′, K3, K4, K5, K6 "
+        f"{others}; cross_attend {cross['cross']} ({cross['decoder_forwards']} bf16 decoder forwards)")
     if k1 != LARGE_V3_ENC_LAYERS * prefills or prefills == 0:
         fail(f"{cls.__name__}: K1 launched {k1} times, expected {LARGE_V3_ENC_LAYERS} × {prefills} prefills")
     if any(others):
         fail(f"{cls.__name__}: K2, K2′, K3, K4, K5, K6 launched {others} times, expected none")
-    return {"class": cls.__name__, "results": results, "k1": k1, "prefill_dispatches": prefills,
+    check_cross(f"6a {cls.__name__}", cross)
+    return {"class": cls.__name__, "results": results, "k1": k1, "cross": cross["cross"],
+            "prefill_dispatches": prefills,
             "macro_steps": steps, "latency_p50_s": p50, "latency_p95_s": p95, "wall_s": wall,
             "audio_s_per_s": audio_s / wall, "occupancy": pool.occupancy,
             "dispatch_efficiency": pool.dispatch_efficiency}
@@ -2824,7 +3250,7 @@ def phase_async_flagship(torch, kernels, beam, engine) -> dict:
             th.join(timeout=2 * SERVING_TIMEOUT_S)
     wall = time.perf_counter() - t_start
     torch.cuda.synchronize()
-    k1, k2, steps = attention.launches, fused_step.launches, beam.steps
+    k1, k2, steps, cross = attention.launches, fused_step.launches, beam.steps, CROSS.counts()
     others = (gather.launches, gather_attend.launches, mel_fused.launches, fused_step.sharded_launches,
               fp8_upcast.launches)  # counts end here
     flushes = batches_run() - flushes0
@@ -2836,14 +3262,16 @@ def phase_async_flagship(torch, kernels, beam, engine) -> dict:
     log(f"  AsyncTranscriber(max_batch=4), flagship: {len(utts)} utterances from 4 threads "
         f"({audio_s:.1f} s of audio) in {wall * 1e3:.1f} ms; {line}; {flushes} flushes, {steps} beam steps")
     log(f"    launches: K1 {k1} ({flushes} flushes × {LARGE_V3_ENC_LAYERS}), K2 {k2} ({steps} steps × "
-        f"{LARGE_V3_DEC_LAYERS}); K4, K3, K5, K2′, K6 {others}")
+        f"{LARGE_V3_DEC_LAYERS}); K4, K3, K5, K2′, K6 {others}; cross_attend {cross['cross']} "
+        f"({cross['decoder_forwards']} bf16 decoder forwards)")
     if flushes == 0 or k1 != LARGE_V3_ENC_LAYERS * flushes:
         fail(f"async flagship: K1 launched {k1} times over {flushes} flushes")
     if steps == 0 or k2 != LARGE_V3_DEC_LAYERS * steps:
         fail(f"async flagship: K2 launched {k2} times over {steps} beam steps")
     if any(others):
         fail(f"async flagship: K4, K3, K5, K2′, K6 launched {others} times, expected none")
-    return {"k1": k1, "k2": k2, "flushes": flushes, "beam_steps": steps, "latency_p50_s": p50,
+    check_cross("6b async flagship", cross)
+    return {"k1": k1, "k2": k2, "cross": cross["cross"], "flushes": flushes, "beam_steps": steps, "latency_p50_s": p50,
             "latency_p95_s": p95, "wall_s": wall, "audio_s_per_s": audio_s / wall}
 
 
@@ -2910,15 +3338,18 @@ def _counts(kernels, beam) -> dict:
     attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast = kernels
     return {"K1": attention.launches, "K2": fused_step.launches, "K2′": fused_step.sharded_launches,
             "K3": gather_attend.launches, "K4": gather.launches, "K5": mel_fused.launches,
-            "K6": fp8_upcast.launches, "beam_steps": beam.steps}
+            "K6": fp8_upcast.launches, "beam_steps": beam.steps, **CROSS.counts()}
 
 
-def _expect(label: str, got: dict, want: dict) -> None:
-    """Every kernel's launches as ``want`` says (0 where it says nothing)."""
+def _expect(label: str, got: dict, want: dict, bf16: bool = True) -> None:
+    """Every kernel's launches as ``want`` says (0 where it says nothing);
+    the cross-attention kernel's as :func:`check_cross` says (``want``'s
+    "cross" where given)."""
     bad = {k: (got[k], want.get(k, 0)) for k in ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
            if got[k] != want.get(k, 0)}
     if bad:
         fail(f"{label}: launches (got, expected) {bad}")
+    check_cross(label, got, bf16, want.get("cross"))
 
 
 def _engine_with(engine, **changes):
@@ -3179,7 +3610,7 @@ def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict
                                                            max_new_tokens=SPEC_F32_BUDGET), seed=0, device="cuda")
     greedy, wall, n = _timed(torch, kernels, beam, lambda: base.transcribe_batch(batch))
     check_results(greedy, base, base.dims.n_vocab)
-    _expect("8a greedy", n, {"K1": LARGE_V3_ENC_LAYERS})
+    _expect("8a greedy", n, {"K1": LARGE_V3_ENC_LAYERS}, bf16=False)
     total = len(base._prompt) + base._max_new
     log(f"  8a greedy f32: {wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; lengths "
         f"{[r.length for r in greedy]} of {total}; launches {n}")
@@ -3198,7 +3629,7 @@ def phase_speculative(torch, kernels, beam, main_engine, phase4_results) -> dict
         log(f"  8a {name} (k 4, encoder {'shared' if eng._draft_share_encoder else 'its own'}): "
             f"{wall * 1e3:.1f} ms → {audio_s / wall:.2f} audio-s/s; rounds {st['rounds']}, accepted "
             f"{st['accepted']} of {st['drafted']} ({st['accepted'] / st['drafted']:.3f}); launches {n}")
-        _expect(f"8a {name}", n, {"K1": k1})
+        _expect(f"8a {name}", n, {"K1": k1}, bf16=False)
         for a, b in zip(res, greedy):
             if not _same_tokens(a, b):
                 fail(f"8a {name}: tokens {a.tokens[: a.length].tolist()} differ from greedy's "
@@ -3250,11 +3681,14 @@ SPEC_F32_BUDGET = 32  # phase 8a's tokens per row
 
 CLI_RUNNER = (
     "import atexit, json, runpy, sys\n"
+    "import chip_smoke\n"
     "from whisper_tpu_torch.frontend import mel_fused\n"
     "from whisper_tpu_torch.ops import attention, fp8_upcast, fused_step, gather, gather_attend\n"
+    "cross = chip_smoke.CROSS.install()\n"
     "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': attention.launches, "
     "'K2': fused_step.launches, 'K2′': fused_step.sharded_launches, 'K3': gather_attend.launches, "
-    "'K4': gather.launches, 'K5': mel_fused.launches, 'K6': fp8_upcast.launches}), file=sys.stderr))\n"
+    "'K4': gather.launches, 'K5': mel_fused.launches, 'K6': fp8_upcast.launches, **cross.counts()}), "
+    "file=sys.stderr))\n"
     "sys.argv = ['whisper_tpu_torch.cli'] + sys.argv[1:]\n"
     "runpy.run_module('whisper_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
 )
@@ -3262,8 +3696,9 @@ CLI_RUNNER = (
 
 def _cli(args, timeout=600) -> tuple:
     """``python -m whisper_tpu_torch.cli ARGS`` in a subprocess (run as the
-    ``-m`` module, its launch counts printed to stderr at exit) → (stdout,
-    stderr, wall s, launches)."""
+    ``-m`` module, its launch counts and the cross-attention witness,
+    :data:`CROSS`, printed to stderr at exit) → (stdout, stderr, wall s,
+    launches)."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], capture_output=True, text=True,
                          timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -3326,7 +3761,7 @@ def phase_cli(torch) -> dict:
         _, _, wall_c, _ = _cli(["convert", "--checkpoint", pt, "--output", npz])
         stdout, stderr, wall_t, n = _cli(["transcribe", *wavs, "--checkpoint", npz, "--dtype", "float32",
                                           "--max-new-tokens", "24", "--language", "en", "--verbose"])
-        _expect("9 tiny checkpoint", n, {"K1": 4})
+        _expect("9 tiny checkpoint", n, {"K1": 4}, bf16=False)
         with _torch_defaults(torch):  # as the subprocess runs: TF32 at torch's defaults
             engine = Monolith.from_assets(load_checkpoint(npz)[0], cfg, device="cuda")
             ref = engine.transcribe_files(wavs)
@@ -3513,7 +3948,10 @@ def phase_ablate(torch, kernels, beam, ablate_step, gather_attend) -> dict:
         want4 = 2 * r["iterations"] if r["row"] == "reorder_k4" else 0
         if (k3, k4) != (want3, want4):
             fail(f"11c {r['row']}: K3 {k3}, K4 {k4} launches, expected {want3}, {want4}")
-    _expect("11c", counts, {"K3": by["fused"]["k3_launches"], "K4": by["reorder_k4"]["k4_launches"]})
+    if "cross" not in by or not by["cross"]["iterations"]:
+        fail("11c: the cross row did not run")
+    _expect("11c", counts, {"K3": by["fused"]["k3_launches"], "K4": by["reorder_k4"]["k4_launches"],
+                            "cross": LARGE_V3_DEC_LAYERS * by["cross"]["iterations"]})  # its layers.cross_attention_T calls
 
     # The reorders: bitwise equal to each other (launches here are checks, not counted).
     bk = batch * beam_size
@@ -3894,6 +4332,8 @@ def sweep_tree(tree: str) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--cross"]:
+        return cross_only()
     if sys.argv[1:2] == ["--moe"]:
         return moe_only("--sweep" in sys.argv[2:])
     if sys.argv[1:2] == ["--sweep-tree"]:
@@ -3913,6 +4353,7 @@ def main() -> None:
     from whisper_tpu_torch.ops import attention, build, fp8_upcast, fused_step, gather, gather_attend
     from whisper_tpu_torch.utils import ablate_step, bench, bench_serving, probe_cross, probe_fused
 
+    CROSS.install()
     log("[1] card")
     card = card_line()
     cap = torch.cuda.get_device_capability(0)
@@ -3923,7 +4364,7 @@ def main() -> None:
     log("[2] build")
     t0 = time.perf_counter()
     kernels = (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast)
-    built = build.build([k.KERNEL for k in kernels] + ["moe_expert"])
+    built = build.build([k.KERNEL for k in kernels] + ["moe_expert", "cross_attend"])
     log(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (secs, ptxas) in built.items():
         usage = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]
@@ -3944,12 +4385,12 @@ def main() -> None:
     k6 = phase_fp8_upcast(torch, fp8_upcast)
 
     log("[4] main path: large-v3, greedy, bf16, language detection")
-    k1["launches"], main_engine, main_results = phase_main_path(
+    k1["launches"], main_engine, main_results, cross_greedy = phase_main_path(
         torch, kernels, EngineConfig, EngineType, create_engine
     )
 
     log("[4b] beam main path: large-v3, beam 5, int8 weights, fp8 KV cache, bf16")
-    k2["launches"], k4["launches"], beam_engine, beam_results = phase_beam_path(
+    k2["launches"], k4["launches"], beam_engine, beam_results, cross_beam = phase_beam_path(
         torch, kernels, beam, EngineConfig, EngineType, create_engine
     )
     phase_quantize_witness(torch, main_engine, beam_engine)
@@ -3959,7 +4400,7 @@ def main() -> None:
     k3["launches"] = phase_probe_fused(torch, kernels, probe_fused)
 
     log("[4d] data-parallel path: large-v3, beam 5, int8, fp8 KV, mesh_shape=(2, 1), two ranks on one card")
-    per_rank = phase_data_parallel(torch, beam_engine, beam_results)
+    per_rank, cross_dp = phase_data_parallel(torch, beam_engine, beam_results)
     k2s["launches"], k2s["launches_per_rank"] = sum(per_rank), per_rank
 
     t4e = time.perf_counter()
@@ -3981,14 +4422,15 @@ def main() -> None:
 
     t4g = time.perf_counter()
     log(f"[4g] K6's path: probe_cross at large-v3, batch 16, beam 5, Tk 1500, fp8, {PROBE_CROSS_ITERS} "
-        "iterations, in its five modes")
+        "iterations, in its six modes; then beam 1, bf16, in bf16 and kernel")
     cross = phase_probe_cross(torch, kernels, probe_cross)
     k6["launches"] = cross["k6_launches"]
     k6["probe_launches"] = {mode: rec["launches"]["K6"] for mode, rec in cross["records"].items()}
     k6["probe"] = {mode: {key: rec[key] for key in ("ms_per_iter", "moved_gb", "launches_per_iter")}
                    for mode, rec in cross["records"].items()}
     k6["engine_launches"] = {"greedy": 0, "beam": 0}  # phases 4 and 4b fail on any other count
-    log(f"probe_cross record: {json.dumps(cross['records'])}; phase 4g took {time.perf_counter() - t4g:.1f} s")
+    log(f"probe_cross record: {json.dumps(cross['records'])}; turbo: {json.dumps(cross['turbo'])}; "
+        f"phase 4g took {time.perf_counter() - t4g:.1f} s")
 
     log("[5] card against CPU: tiny, float32, TF32 off")
     phase_card_vs_cpu(torch, EngineConfig, Monolith)
@@ -4057,8 +4499,15 @@ def main() -> None:
     moe = phase_moe(torch, moe_expert, audio_lm, greedy, graph, EngineConfig, EngineType, create_engine)
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
-    names = ("K1", "K2", "K2′", "K3", "K4", "K5", "K6")
-    for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5, k6)):
+    t13 = time.perf_counter()
+    from whisper_tpu_torch.ops import cross_attend
+
+    cross_rec = phase_cross(torch, cross_attend)
+    log(f"cross-attention record: {json.dumps(cross_rec)}; phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    xa = cross_kernel_record(cross_rec, cross_greedy, cross_beam, cross_dp, tp, stream, serving, cross)
+    names = ("K1", "K2", "K2′", "K3", "K4", "K5", "K6", "cross")
+    for name, rec in zip(names, (k1, k2, k2s, k3, k4, k5, k6, xa)):
         rec["tools_launches"] = {
             "11a_flagship": bench_rec["flagship"]["launches"][name],
             "11a_greedy": bench_rec["greedy"]["launches"][name],
@@ -4074,7 +4523,7 @@ def main() -> None:
     k1["f32"]["launches"] = spec["8a_greedy"]["launches"]["K1"]  # the f32 main path: 8a's greedy batch
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5, k6, moe]}))
+    print(json.dumps({"kernels": [k1, k2, k2s, k3, k4, k5, k6, moe, xa]}))
     print(card)
     print(json.dumps({
         "ok": True,

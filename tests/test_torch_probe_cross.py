@@ -7,7 +7,10 @@ untouched) and its jitted ``run`` gives ``q[0, 0, 0, 0]`` after the
 iterations; the port's ``run(device="cpu")`` starts from the tool's own
 ``q0, xk, xv``. ``dmastage`` is held against the tool's ``stage``: the
 tool's ``dma_upcast`` does not lower on the CPU, and on the CPU the port's
-K6 is its plain version, which must equal ``.to(torch.bfloat16)``.
+K6 is its plain version, which must equal ``.to(torch.bfloat16)``. The
+port's ``kernel`` mode has no counterpart in the tool: it takes head size
+64 only (refused at dev's 32), and on the CPU at ``tiny`` it is the plain
+version, bitwise ``prod``.
 
 Tolerance: 4 bf16 ulps at the largest |q| of the port's run. Both sides
 round the same ops to bf16 (the upcast, the attention output, ``tanh``),
@@ -65,7 +68,7 @@ def _bf16_tol(q: torch.Tensor) -> float:
     return 4 * 2.0 ** (np.floor(np.log2(q.float().abs().max().item())) - 7)
 
 
-@pytest.mark.parametrize("mode", probe_cross.MODES)
+@pytest.mark.parametrize("mode", [m for m in probe_cross.MODES if m != "kernel"])
 def test_mode_matches_the_tool(tools, mode):
     g = tools["stage" if mode == "dmastage" else mode]
     before = fp8_upcast.launches
@@ -110,6 +113,22 @@ def test_moved_bytes_at_the_probe_defaults():
         assert probe_cross.moved_bytes(mode, 32, 16, 5, 20, 64, 1500, 1) == 32 * per_layer
 
 
+def test_kernel_mode_is_prod_on_the_cpu():
+    runs = {mode: probe_cross.run("tiny", 2, 3, 40, iters=2, warmup=0, mode=mode, device="cpu")
+            for mode in ("prod", "kernel")}
+    assert runs["kernel"]["cross_launches"] is None and runs["kernel"]["layers"] == 4
+    assert torch.equal(runs["kernel"]["q"], runs["prod"]["q"])
+    with pytest.raises(ValueError, match="cross_attend"):  # dev's heads are 32 wide
+        probe_cross.run("dev", 1, 1, 16, mode="kernel", device="cpu")
+
+
+def test_moved_bytes_of_the_kernel():
+    """K and V read once in the store's dtype: 2 bytes per fp8 element pair."""
+    n = 16 * 20 * 64 * 1500
+    assert probe_cross.moved_bytes("kernel", 32, 16, 5, 20, 64, 1500, 1) == 32 * 2 * n
+    assert probe_cross.moved_bytes("kernel", 4, 16, 1, 20, 64, 1500, 2) == 4 * 4 * n
+
+
 def test_refusals():
     with pytest.raises(ValueError, match="mode"):
         probe_cross.run("dev", 1, 1, 16, mode="dma", device="cpu")
@@ -124,6 +143,7 @@ def test_import_of_k6_and_its_path_leaves_jax_triton_and_reference_out():
     code = (
         "import sys\n"
         "import whisper_tpu_torch.ops.fp8_upcast, whisper_tpu_torch.utils.probe_cross\n"
+        "import whisper_tpu_torch.ops.cross_attend\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or m == 'whisper_tpu'"
         " or m.startswith(('jax.', 'triton.', 'whisper_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -34,9 +34,10 @@ more buffers; every capture of an engine draws on one memory pool.
 
 The captured step opens no span and bumps no counter of its own: those
 would run only once, at capture. The ``launches`` of the hand-written
-kernels a captured step runs (K2, ``ops/fused_step``; the routed experts,
-``ops/moe_expert``) count what the capture launched; that is taken back,
-and each replay adds it again, so they keep counting launches on the card.
+kernels a captured step runs (K2, ``ops/fused_step``; the cross-attention,
+``ops/cross_attend``; the routed experts, ``ops/moe_expert``) count what
+the capture launched; that is taken back, and each replay adds it again,
+so they keep counting launches on the card.
 :data:`captures` and :data:`replays` count this module's work.
 """
 
@@ -47,12 +48,12 @@ from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
-from whisper_tpu_torch.ops import fused_step, moe_expert
+from whisper_tpu_torch.ops import cross_attend, fused_step, moe_expert
 
 WARM_STEPS = 2  # eager steps of an entry before its first capture
 MAX_ENTRIES = 4  # shape keys an engine keeps captured
 WINDOW = 32  # a captured step's read window grows in steps of this many positions
-COUNTED = (fused_step, moe_expert)  # kernel modules whose ``launches`` replays add to
+COUNTED = (fused_step, cross_attend, moe_expert)  # kernel modules whose ``launches`` replays add to
 
 # Graphs captured and steps replayed in this process.
 captures = 0

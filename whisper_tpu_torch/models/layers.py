@@ -25,8 +25,11 @@ before the bias, as in JAX. In f32 that is JAX's arithmetic; in bf16 the
 product is rounded to bf16 before the f32 rescale (one extra bf16 rounding
 per output, the same class as the float weights above). The int8 embedding
 table ``{"q", "s"}`` is per-row scaled, in f32. fp8 K/V (``itemsize == 1``,
-``kv_cache_dtype="float8_e4m3fn"``) are upcast to the query's dtype at use,
-so attention over an fp8 cache returns the query's dtype, as in JAX.
+``kv_cache_dtype="float8_e4m3fn"``) give the query's dtype, as in JAX: the
+self-attention's are upcast to it at use (``qkv_attention``); the cross
+K/V's are upcast in registers by the cross-attention kernel on the card
+(``ops/cross_attend``, bf16 queries) and to the query's dtype at use
+elsewhere (its plain version: f32 queries, the CPU).
 
 Tensor parallelism (``tp``: this rank's ``parallel.mesh.Mesh``, or None):
 the parameters are this rank's slices (``parallel/sharding.py``). A
@@ -48,6 +51,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from whisper_tpu_torch.ops import cross_attend
 from whisper_tpu_torch.parallel.collectives import all_gather_model, all_reduce_model, model_size
 
 
@@ -162,18 +166,15 @@ def cross_attention_T(
     vT: torch.Tensor,  # [B, H, Dh, Tk]
 ) -> torch.Tensor:
     """Unmasked cross-attention against head-major, sequence-minor K/V (the
-    layout ``decoder.precompute_cross_kv`` stores; fp8 K/V are upcast to
-    the query's dtype at use). Returns [B, Tq, H, Dh]."""
-    if kT.element_size() == 1:
-        kT = kT.to(q.dtype)
-    if vT.element_size() == 1:
-        vT = vT.to(q.dtype)
-    dh = q.shape[-1]
-    qt = q.transpose(1, 2)  # [B, H, Tq, Dh]
-    scores = torch.matmul(qt.float(), kT.float()) * (1.0 / float(dh) ** 0.5)
-    weights = torch.softmax(scores, dim=-1)
-    out = torch.matmul(weights.to(vT.dtype), vT.transpose(-1, -2))  # [B, H, Tq, Dh]
-    return out.transpose(1, 2).to(vT.dtype)
+    layout ``decoder.precompute_cross_kv`` stores). A CUDA call with a bf16
+    query goes to the hand-written kernel (``ops/cross_attend``), which
+    reads the stored K/V once, upcasts fp8 in registers, and raises on a
+    head size or store it does not take; the float32 parity dtype and CPU
+    tensors take its plain version (fp8 K/V upcast to the query's dtype at
+    use). Returns [B, Tq, H, Dh]."""
+    if q.device.type == "cuda" and cross_attend.routes(q):
+        return cross_attend.cross_attend(q, kT, vT)
+    return cross_attend.cross_attend_reference(q, kT, vT)
 
 
 def mha_self(p, x: torch.Tensor, n_head: int, mask=None, fused: bool = False, tp=None):

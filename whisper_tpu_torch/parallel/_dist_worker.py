@@ -38,7 +38,7 @@ turns on the alignment forward (each rank aligns its rows; not on the
 their length, lengths, text, avg_logprob, no-speech probabilities,
 temperature and compression ratio, words as ``[word, start, end]``) and
 this rank's
-launches of K1–K5 and K2′ over that run, its decode steps and its
+launches of K1–K5, K2′ and the cross-attention kernel over that run, its decode steps and its
 model-group collectives (``parallel/collectives.py``: calls, by stage, host
 seconds) go to ``--out`` as JSON, with a checksum and the bytes of the
 rank's weights and, on the card, its peak memory. ``--stages`` adds, on
@@ -186,7 +186,7 @@ def main() -> int:
     from whisper_tpu_torch.engine import EngineType, create_engine
     from whisper_tpu_torch.models.quantize import param_bytes
     from whisper_tpu_torch.frontend import mel_fused
-    from whisper_tpu_torch.ops import attention, fused_step, gather, gather_attend
+    from whisper_tpu_torch.ops import attention, cross_attend, fused_step, gather, gather_attend
     from whisper_tpu_torch.parallel import collectives
     from whisper_tpu_torch.parallel.multihost import initialize, rank, world_size
 
@@ -231,7 +231,7 @@ def main() -> int:
         crop = engine._resolve_audio_ctx(None)
 
     def reset():
-        for m in (attention, fused_step, gather, gather_attend, mel_fused):
+        for m in (attention, fused_step, gather, gather_attend, mel_fused, cross_attend):
             m.launches = 0
         fused_step.sharded_launches = 0
         beam.steps = greedy.steps = 0
@@ -246,6 +246,7 @@ def main() -> int:
                 "permute_rows": gather.launches,
                 "gather_attend": gather_attend.launches,
                 "log_mel_fused": mel_fused.launches,
+                "cross_attend": cross_attend.launches,
             },
             "steps": beam.steps + greedy.steps,
             "collectives": {

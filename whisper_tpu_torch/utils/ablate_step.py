@@ -318,7 +318,7 @@ def timed(name: str, label: str, init, step, consts=(), gb: Optional[float] = No
                 times.append(start.elapsed_time(end) / max(iters, 1))
     per_iter = None
     if cuda:
-        _, per_iter, _ = traced_step(lambda c: step(c, 0, *consts), _clone(init))
+        _, per_iter, _, _ = traced_step(lambda c: step(c, 0, *consts), _clone(init))
         runs += 1
     ms = min(times) if times else None
     return {

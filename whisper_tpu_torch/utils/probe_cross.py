@@ -2,7 +2,7 @@
 
     python3 -m whisper_tpu_torch.utils.probe_cross [model] [batch] [beam]
         [--kv float8_e4m3fn] [--iters 16] [--tk 1500]
-        [--mode prod|bf16|stage|dmastage|chunk]
+        [--mode prod|bf16|stage|dmastage|chunk|kernel]
 
 Counterpart of ``tools/probe_cross.py`` (defaults ``large-v3 16 5``, 16
 iterations, Tk 1500; its ``PROBE_*`` environment variables are flags here).
@@ -12,24 +12,32 @@ iteration runs all L decoder layers, and each layer computes
 ``q = tanh(cross(q, K_l, V_l))`` in q's dtype, so the serial dependence
 through q keeps anything from being hoisted. The cross read by mode:
 
-* ``prod``: ``models/layers.cross_attention_T`` on the fp8 store, the
-  production function;
+* ``prod``: ``ops/cross_attend.cross_attend_reference`` on the fp8 store,
+  the PyTorch ops ``models/layers.cross_attention_T`` ran on the card until
+  the kernel below (its plain version since);
 * ``bf16``: the same function on a bf16 store;
 * ``stage``: ``.to(torch.bfloat16)`` of the layer's K and V, then
-  ``cross_attention_T`` (eager torch materialises each op);
+  the plain version (eager torch materialises each op);
 * ``dmastage``: K6, ``ops/fp8_upcast.dma_upcast``, on the layer's K and V
-  as ``[B·H·Dh, Tk]`` planes, then ``cross_attention_T``; a 2-byte store is
+  as ``[B·H·Dh, Tk]`` planes, then the plain version; a 2-byte store is
   refused (the TPU kernel copies it, which is not ported);
 * ``chunk``: :func:`cross_chunked`, Tk in halves with an online max/sum
-  merge, in JAX's arithmetic.
+  merge, in JAX's arithmetic;
+* ``kernel``: ``ops/cross_attend.cross_attend``, the hand-written kernel
+  ``cross_attention_T`` now calls on the card, on the ``--kv`` store (one
+  launch a layer that reads the stored K and V once).
 
 It prints the time per L-layer iteration from CUDA events around the timed
-iterations (host enqueue included: the loop is eager), JAX's window read
+iterations (host enqueue included: the loop is eager, so where an
+iteration's device work is short, as the ``kernel`` mode's 32 launches
+are, the host's enqueue paces it and the time varies with the host's
+load), the device time of one iteration's kernels (profiler; the host's
+pace left out), JAX's window read
 (``gb``: the K and V store bytes) and the rate over it, the bytes the
 formulation moves as reckoned from its ops (:func:`moved_bytes`) beside the
 fp8 window's bound, the device launches of one iteration and its
-costliest kernels (profiler), K6's launches, and the card's name and
-power limit; the last line is one
+costliest kernels (profiler), K6's and the cross-attention kernel's
+launches, and the card's name and power limit; the last line is one
 JSON object. :func:`run` is the entry point for scripts and tests; it
 defaults to the card and raises without one.
 """
@@ -41,15 +49,15 @@ import functools
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 from whisper_tpu_torch.config import MODEL_DIMS
-from whisper_tpu_torch.models import layers
-from whisper_tpu_torch.ops import fp8_upcast
+from whisper_tpu_torch.ops import cross_attend, fp8_upcast
 
-MODES = ("prod", "bf16", "stage", "dmastage", "chunk")
+MODES = ("prod", "bf16", "stage", "dmastage", "chunk", "kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 
 
@@ -92,7 +100,9 @@ def _cross(mode: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
         k, v = (fp8_upcast.dma_upcast(x.reshape(-1, x.shape[-1])).reshape(x.shape) for x in (k, v))
     if mode == "chunk":
         return cross_chunked(q, k, v)
-    return layers.cross_attention_T(q, k, v)
+    if mode == "kernel":
+        return cross_attend.cross_attend(q, k, v)
+    return cross_attend.cross_attend_reference(q, k, v)
 
 
 def moved_bytes(
@@ -104,7 +114,8 @@ def moved_bytes(
     of K (and of V) and the s = B·H·Tq·Tk scores (q- and output-sized terms,
     Tq/Tk of these, are left out):
 
-    * ``cross_attention_T``: an fp8 K or V upcast to bf16 (1 + 2 per element);
+    * the plain version (``prod``, ``bf16``): an fp8 K or V upcast to bf16
+      (1 + 2 per element);
       ``kT.float()`` (2 + 4, or nothing on an f32 store) and the score product's
       read of it (4); the value product's read of V (its dtype); the scores
       written (4), scaled (4 + 4), softmaxed (4 + 4), cast to V's dtype and
@@ -114,12 +125,16 @@ def moved_bytes(
     * ``chunk`` (:func:`cross_chunked`): K and V each upcast, made f32 and read
       (13 per element from fp8); the scores written (4), scaled (4 + 4), their
       max read (4), ``s - m`` (4 + 4), ``exp`` (4 + 4), the sum read (4), the
-      weights cast to V's dtype and back to f32 and read (4 + 2 + 2 + 4 + 4)."""
+      weights cast to V's dtype and back to f32 and read (4 + 2 + 2 + 4 + 4);
+    * ``kernel``: K and V read once in the store's dtype; the scores stay in
+      shared memory."""
     n, s = b * h * dh * tk, b * h * tq * tk
     i = 2 if mode == "bf16" else store_itemsize
     up = i + 2 if i == 1 else 0  # an fp8 plane upcast to bf16
     c = 2 if i == 1 else i  # the dtype the products read K and V in
     as_f32 = c + 4 if c != 4 else 0
+    if mode == "kernel":
+        return n_layer * n * 2 * i
     if mode == "chunk":
         per_n = 2 * (up + as_f32 + 4)
         per_s = 4 + 8 + 4 + 8 + 8 + 4 + (4 + c if c != 4 else 0) + as_f32 + 4
@@ -153,15 +168,25 @@ def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype).contiguous()
 
 
+TRACE_PAD_S = 0.05  # host seconds at each end of a traced step, inside the profiler's window
+
+
 def traced_step(step, q, top: int = 6):
     """(q after one ``step``, its device launches, its ``top`` device
-    kernels by time as {name: ms}) from a ``torch.profiler`` trace; the
-    launches are None where the trace holds no device event."""
+    kernels by time as {name: ms}, the device ms of all its kernels) from a
+    ``torch.profiler`` trace; the launches and the ms are None where the
+    trace holds no device event. CUDA activity only, and the step runs
+    :data:`TRACE_PAD_S` after the profiler starts and ends as long before
+    it stops: a trace with CPU activity too, padded or not, has read some
+    17–20 kernels fewer than an iteration launched on an H100 (44–47 of
+    the ``kernel`` mode's 64)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         q = step(q)
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -169,7 +194,8 @@ def traced_step(step, q, top: int = 6):
             by_name[e.name] = (n + 1, us + e.device_time)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     kernels = {name: {"count": n, "ms": us / 1e3} for name, (n, us) in ranked}
-    return q, sum(n for n, _ in by_name.values()) or None, kernels
+    device_ms = sum(us for _, us in by_name.values()) / 1e3 if by_name else None
+    return q, sum(n for n, _ in by_name.values()) or None, kernels, device_ms
 
 
 def run(
@@ -183,10 +209,12 @@ def run(
     window read per iteration: the K and V store bytes, GB), ``moved_gb``
     (:func:`moved_bytes`, GB), ``bound_ms`` (the fp8 window read once at
     the H100's memory rate), ``ms_per_iter`` (CUDA events over the ``iters``
-    timed iterations), ``launches_per_iter`` and ``top_kernels`` (device
-    kernels of the last warm-up iteration and the costliest of them by
-    device ms, from the profiler) and ``k6_launches`` (K6's launches
-    in this run); the times and launches are None on the CPU."""
+    timed iterations), ``device_ms_per_iter``, ``launches_per_iter`` and
+    ``top_kernels`` (the device ms of all kernels of the last warm-up
+    iteration, their count and the costliest of them by device ms, from
+    the profiler), ``k6_launches`` (K6's launches in this
+    run) and ``cross_launches`` (the cross-attention kernel's); the times
+    and launches are None on the CPU."""
     if mode not in MODES:
         raise ValueError(f"probe_cross: mode {mode!r} not in {MODES}")
     dev = torch.device(device)
@@ -217,11 +245,11 @@ def run(
             q = torch.tanh(_cross(mode, q, xk[layer], xv[layer])).to(q.dtype)
         return q
 
-    k6_before = fp8_upcast.launches
-    per_iter, top = None, None
+    k6_before, cross_before = fp8_upcast.launches, cross_attend.launches
+    per_iter, top, device_ms = None, None, None
     for i in range(warmup):
         if dev.type == "cuda" and i == warmup - 1:
-            q, per_iter, top = traced_step(step, q)
+            q, per_iter, top, device_ms = traced_step(step, q)
         else:
             q = step(q)
     ms = None
@@ -242,8 +270,9 @@ def run(
         "moved_gb": moved_bytes(mode, n_layer, batch, beam, n_head, dh, tk, xk.element_size())
         / 1e9,
         "bound_ms": window / HBM_BYTES_PER_S * 1e3,
-        "ms_per_iter": ms, "launches_per_iter": per_iter, "top_kernels": top,
-        "k6_launches": fp8_upcast.launches - k6_before if dev.type == "cuda" else None,
+        "ms_per_iter": ms, "device_ms_per_iter": device_ms, "launches_per_iter": per_iter,
+        "top_kernels": top, "k6_launches": fp8_upcast.launches - k6_before if dev.type == "cuda" else None,
+        "cross_launches": cross_attend.launches - cross_before if dev.type == "cuda" else None,
     }
 
 
@@ -251,11 +280,11 @@ def record(mode: str, res: dict) -> dict:
     """The printable record of one run (everything but ``q``)."""
     ms = res["ms_per_iter"]
     return {
-        "mode": mode, "ms_per_iter": ms, "gb": res["gb"],
+        "mode": mode, "ms_per_iter": ms, "device_ms_per_iter": res["device_ms_per_iter"], "gb": res["gb"],
         "gb_per_s": res["gb"] / ms * 1e3 if ms else None,
         "moved_gb": res["moved_gb"], "bound_ms": res["bound_ms"],
         "launches_per_iter": res["launches_per_iter"], "top_kernels": res["top_kernels"],
-        "k6_launches": res["k6_launches"],
+        "k6_launches": res["k6_launches"], "cross_launches": res["cross_launches"],
         "steps": res["steps"],
     }
 
@@ -281,10 +310,11 @@ def main() -> None:
           f"store={store} iters={args.iters}", flush=True)
     res = run(args.model, args.batch, args.beam, args.tk, args.kv, args.iters, args.mode)
     rec = record(args.mode, res)
-    print(f"cross x{res['layers']}: {rec['ms_per_iter']:8.3f} ms/iter ({rec['gb_per_s']:6.0f} GB/s "
+    print(f"cross x{res['layers']}: {rec['ms_per_iter']:8.3f} ms/iter, {rec['device_ms_per_iter']:.3f} "
+          f"device ms/iter ({rec['gb_per_s']:6.0f} GB/s "
           f"of {rec['gb']:.2f} GB window read); moves {rec['moved_gb']:.2f} GB by its ops; fp8 "
           f"window bound {rec['bound_ms']:.3f} ms; {rec['launches_per_iter']} launches/iter, "
-          f"K6 {rec['k6_launches']}")
+          f"K6 {rec['k6_launches']}, cross_attend {rec['cross_launches']}")
     for name, k in (rec["top_kernels"] or {}).items():
         print(f"  {k['ms']:8.3f} ms in {k['count']:4d} launches of {name[:240]}")
     print(card)

@@ -11,7 +11,8 @@ device-kernel time, the device busy share (kernel time / wall; kernels run
 on one stream, so their sum is the busy time), the kernel launch count, and
 the kernels that take the most device time, and the share of device time
 and the launches of each of the port's own kernels (K1 ``flash_attn_fwd``,
-K2 ``permute_append``, K4 ``permute_rows``; K3 ``gather_attend``, K5
+K2 ``permute_append``, K4 ``permute_rows``, the decoder's cross-attention
+``cross_attend``; K3 ``gather_attend``, K5
 ``log_mel_fused`` and K2′ ``permute_append_sharded``, which a
 single-process engine does not run, must count 0), found in the trace by
 each kernel's symbol (its module's ``KERNEL_SYMBOL``; K2′'s
@@ -37,10 +38,11 @@ import numpy as np
 def _own_kernels() -> dict:
     """{name: (symbol in the trace, the wrapper's launch count now)}."""
     from whisper_tpu_torch.frontend import mel_fused
-    from whisper_tpu_torch.ops import attention, fp8_upcast, fused_step, gather, gather_attend
+    from whisper_tpu_torch.ops import (attention, cross_attend, fp8_upcast, fused_step, gather,
+                                       gather_attend)
 
     own = {m.KERNEL: (m.KERNEL_SYMBOL, m.launches)
-           for m in (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast)}
+           for m in (attention, fused_step, gather, gather_attend, mel_fused, fp8_upcast, cross_attend)}
     own[fused_step.SHARDED_KERNEL] = (fused_step.SHARDED_KERNEL_SYMBOL, fused_step.sharded_launches)
     return own
 
